@@ -1,0 +1,662 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port of the WF-Ext table on one GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, each phase
+printing one JSON line:
+
+1. build: kernel build seconds, the card's name and power limit;
+2. kernels: ``fused_probe`` (2**20 queries) and ``fused_apply`` (512-lane
+   batches over carried rounds, all five statuses) against their plain
+   PyTorch versions at the main path's shapes — integers, tolerance 0;
+3. main path at full size through the ``Table`` facade:
+   ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
+   initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
+   lookup and one 512-op write transaction (90% lookups), a FROZEN status
+   through ``freeze_buddies`` and one ``merge``; every status and lookup
+   against a dict oracle, the final content, the invariants, the error
+   flag, and both kernels' launch counts on this phase;
+4. the whole path under the ``"cuda"`` plan against the ``"plain"`` plan on
+   the same card: statuses, lookups and state;
+5. where a mixed round's time goes: the slow path's share (host timers)
+   and the device's busy time and top kernels (torch.profiler);
+6. kernel times (CUDA events) at the main path's shapes beside their plain
+   versions and their bound.
+
+Then the ``nvidia-smi`` name/power line, the kernels line and, last,
+``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
+is non-zero and the last line is not printed. Without a CUDA device, or
+without the repository beside it, the script fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+EMPTY = -2**31
+# H100 SXM peak rates: HBM bytes/s; the float32
+# non-tensor rate stands in for 32-bit integer operations
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+MAIN_SPEC = dict(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
+                 initial_depth=16)
+LOOKUPS_PER_ROUND = 4608
+ROUNDS = 256
+PRELOAD = 2**19
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn(i)`` over ``iters`` calls (CUDA
+    events), after two warm-up calls. The launches queue up behind a
+    device-side sleep, so the events time the kernels back to back and not
+    the host's launch overhead; ``fn`` must not synchronize."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)      # ~0.1 s: covers the enqueueing
+    t0.record()
+    for i in range(iters):
+        fn(i)
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall milliseconds of ``fn(i)`` ending in a synchronize — for
+    code that synchronizes inside (the plain apply reads ``.item()``)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    tb, to = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def distinct_keys(rng, m: int) -> np.ndarray:
+    """``m`` distinct int32 keys in [1, 2**31 - 1), seeded order."""
+    k = np.unique(rng.integers(1, 2**31 - 1, size=int(m * 1.01) + 64,
+                               dtype=np.int64))
+    check(k.size >= m, "not enough distinct keys drawn")
+    return rng.permutation(k)[:m].astype(np.int32)
+
+
+def route_np(keys, directory, dmax):
+    from repro_torch.core.hashing import hash_np
+    return directory[(hash_np("fmix32", keys) >> np.uint32(32 - dmax))
+                     .astype(np.int64)]
+
+
+def place_keys(pk, pv, keys, rows, limit, rng):
+    """Put ``keys`` into the rows they route to, at most ``limit`` per row
+    (first come first placed); returns the mask of keys placed."""
+    order = np.argsort(rows, kind="stable")
+    r = rows[order]
+    start = np.r_[0, np.nonzero(r[1:] != r[:-1])[0] + 1]
+    rank = np.arange(r.size) - np.repeat(start, np.diff(np.r_[start, r.size]))
+    rank += (pk[r] != EMPTY).sum(axis=1)
+    ok = rank < limit
+    pk[r[ok], rank[ok]] = keys[order][ok]
+    pv[r[ok], rank[ok]] = rng.integers(-2**31, 2**31, size=ok.sum(),
+                                       dtype=np.int64).astype(np.int32)
+    placed = np.zeros(keys.size, bool)
+    placed[order[ok]] = True
+    return placed
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+
+
+def kernel_checks(rng, dev):
+    from repro_torch.kernels.apply import (ST_FALSE, ST_FROZEN, ST_FULL,
+                                           ST_IDLE, ST_TRUE, fused_apply,
+                                           fused_apply_plain)
+    from repro_torch.kernels.lookup import fused_probe, fused_probe_plain
+
+    dmax, P, B = MAIN_SPEC["dmax"], MAIN_SPEC["pool_size"], 8
+    # a directory at depth dmax-3 over a shuffled set of rows, filled to
+    # about 60% by keys placed in the rows they route to
+    depth = dmax - 3
+    rows = rng.permutation(P)[: 1 << depth].astype(np.int32)
+    directory = rows[np.arange(1 << dmax) >> (dmax - depth)]
+    pk = np.full((P + 1, B), EMPTY, np.int32)
+    pv = np.zeros((P + 1, B), np.int32)
+    keys = distinct_keys(rng, int(0.6 * B * (1 << depth)))
+    keys[:2] = [2**31 - 1, -2**31 + 1]
+    placed = place_keys(pk, pv, keys, route_np(keys, directory, dmax), B,
+                        rng)
+    live = keys[placed]
+    absent = keys[~placed]
+    n_q = 1 << 20
+    q = np.where(rng.random(n_q) < 0.5,
+                 rng.choice(live, size=n_q), rng.choice(
+                     np.r_[absent, -keys[:1000]], size=n_q)).astype(np.int32)
+    q[:4] = [EMPTY, 2**31 - 1, -2**31 + 1, 2**31 - 2]
+    d_t = torch.tensor(directory, device=dev)
+    args = (d_t, torch.tensor(q, device=dev), torch.tensor(pk[:-1], device=dev),
+            torch.tensor(pv[:-1], device=dev))
+    kf, kv = fused_probe(*args, dmax=dmax)
+    pf, pvals = fused_probe_plain(*args, dmax=dmax)
+    torch.cuda.synchronize()
+    probe_mm = int((kf != pf).sum() + (kv != pvals).sum())
+    probe_err = int((kv.long() - pvals.long()).abs().max())
+    check(probe_mm == 0, f"fused_probe disagrees with its plain version "
+          f"in {probe_mm} outputs")
+    check(bool(pf[1]) and bool(pf[2]) and not bool(pf[0]),
+          "edge-key queries")
+
+    # fused_apply: 512-lane batches over hot rows of mixed fill, a frozen
+    # mask, carried over rounds
+    n = MAIN_SPEC["n_lanes"]
+    hot = distinct_keys(np.random.default_rng(rng.integers(2**31)), 4096)
+    hot_rows = route_np(hot, directory, dmax)
+    apk, apv = pk.copy(), pv.copy()
+    fill = rng.integers(3, B + 1, size=P + 1)       # many rows near full
+    for s in range(B):
+        apk[s >= fill, s] = EMPTY      # rows stay prefix-filled
+    place_keys(apk, apv, hot[: hot.size // 2], hot_rows[: hot.size // 2], B,
+               rng)
+    frozen = np.zeros(P + 1, bool)
+    frozen[hot_rows[rng.random(hot.size) < 0.08]] = True
+    fr_t = torch.tensor(frozen, device=dev)
+    k_pk, k_pv = torch.tensor(apk, device=dev), torch.tensor(apv, device=dev)
+    p_pk, p_pv = k_pk.clone(), k_pv.clone()
+    seen = set()
+    apply_mm = apply_err = 0
+    for rnd in range(6):
+        kinds = rng.integers(0, 3, size=n).astype(np.int32)
+        ops = [torch.tensor(x, device=dev) for x in (
+            kinds, rng.choice(hot, size=n).astype(np.int32),
+            rng.integers(0, 2**31 - 1, size=n).astype(np.int32))]
+        _, _, ks, kb = fused_apply(d_t, fr_t, *ops, k_pk, k_pv, dmax=dmax)
+        _, _, ps, pb = fused_apply_plain(d_t, fr_t, *ops, p_pk, p_pv,
+                                         dmax=dmax)
+        torch.cuda.synchronize()
+        mm = int((ks != ps).sum() + (kb != pb).sum()
+                 + (k_pk[:P] != p_pk[:P]).sum() + (k_pv[:P] != p_pv[:P]).sum())
+        apply_mm += mm
+        apply_err = max(apply_err, int((k_pv[:P].long()
+                                        - p_pv[:P].long()).abs().max()))
+        seen |= set(ks.tolist())
+    check(apply_mm == 0, f"fused_apply disagrees with its plain version in "
+          f"{apply_mm} outputs")
+    want = {ST_TRUE, ST_FALSE, ST_FULL, ST_FROZEN, ST_IDLE}
+    check(want <= seen, f"statuses covered: {sorted(seen)}")
+    emit({"phase": "kernels", "fused_probe": {
+        "queries": n_q, "found": int(kf.sum()), "mismatches": probe_mm,
+        "max_abs_err": probe_err}, "fused_apply": {
+        "lanes": n, "rounds": 6, "statuses": sorted(seen),
+        "mismatches": apply_mm, "max_abs_err": apply_err}, "ok": True})
+    return {"fused_probe": (probe_mm, probe_err),
+            "fused_apply": (apply_mm, apply_err)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path through the facade
+
+
+class Oracle:
+    """Dict oracle with lane-order semantics and O(1) random live keys."""
+
+    def __init__(self):
+        self.d, self.keys, self.pos = {}, [], {}
+
+    def insert(self, k, v):
+        new = k not in self.d
+        if new:
+            self.pos[k] = len(self.keys)
+            self.keys.append(k)
+        self.d[k] = v
+        return 1 if new else 0
+
+    def delete(self, k):
+        if k not in self.d:
+            return 0
+        del self.d[k]
+        i, last = self.pos.pop(k), self.keys.pop()
+        if last != k:
+            self.keys[i] = last
+            self.pos[last] = i
+        return 1
+
+
+def traffic(rng, oracle: Oracle, fresh_iter, absent: np.ndarray):
+    """Host-side ops for every round and the results the oracle expects:
+    one lookup batch (half live keys, half never-inserted keys) and one
+    512-op transaction (128 new inserts, 128 updates, 128 deletes of live
+    keys, 128 deletes of absent keys, lanes shuffled)."""
+    rounds = []
+    h = LOOKUPS_PER_ROUND // 2
+    for _ in range(ROUNDS):
+        live = np.asarray(oracle.keys, np.int32)
+        q = np.r_[rng.choice(live, size=h), rng.choice(absent, size=h)]
+        q = rng.permutation(q).astype(np.int32)
+        found = np.array([k in oracle.d for k in q.tolist()])
+        vals = np.array([oracle.d.get(k, -1) for k in q.tolist()], np.int32)
+        old = rng.choice(live, size=256, replace=False)
+        keys = np.r_[[next(fresh_iter) for _ in range(128)], old,
+                     rng.choice(absent, size=128)].astype(np.int32)
+        kinds = np.r_[np.full(256, 1), np.full(256, 2)].astype(np.int32)
+        perm = rng.permutation(512)
+        keys, kinds = keys[perm], kinds[perm]
+        values = rng.integers(0, 2**31 - 1, size=512).astype(np.int32)
+        status = np.array([oracle.insert(k, v) if c == 1 else oracle.delete(k)
+                           for c, k, v in zip(kinds.tolist(), keys.tolist(),
+                                              values.tolist())], np.int8)
+        rounds.append((q, found, vals, kinds, keys, values, status))
+    return rounds
+
+
+def mergeable_parents(snap, dmax, B):
+    """(parent_prefix, parent_depth) of buddy pairs that can merge."""
+    live = np.nonzero(snap["live"][:-1] & ~snap["frozen"][:-1])[0]
+    d, p = snap["bdepth"][live], snap["bprefix"][live]
+    left = live[(d >= 1) & (p % 2 == 0)]
+    d, p = snap["bdepth"][left], snap["bprefix"][left]
+    right = snap["directory"][(p.astype(np.int64) + 1) << (dmax - d)]
+    c0, c1 = snap["counts"][left], snap["counts"][right]
+    ok = ((snap["bdepth"][right] == d) & ~snap["frozen"][right]
+          & (c0 < B) & (c1 < B) & (c0 + c1 <= B))
+    return [(int(pp) >> 1, int(dd) - 1) for pp, dd in zip(p[ok], d[ok])]
+
+
+def main_path(rng, dev):
+    from repro_torch.core import table as T
+    from repro_torch.core.invariants import check_invariants, to_dict
+    from repro_torch.kernels.apply import fused_apply
+    from repro_torch.kernels.lookup import fused_probe
+    from repro_torch.table_api import Table, TableSpec
+
+    spec = TableSpec(**MAIN_SPEC, backend="cuda")
+    cfg = spec.table_config()
+    n_absent = PRELOAD // 2
+    keys = distinct_keys(rng, PRELOAD + ROUNDS * 128 + n_absent)
+    pre, fresh, absent = np.split(keys, [PRELOAD, PRELOAD + ROUNDS * 128])
+    pre_vals = rng.integers(0, 2**31 - 1, size=PRELOAD).astype(np.int32)
+    oracle = Oracle()
+    for k, v in zip(pre.tolist(), pre_vals.tolist()):
+        oracle.insert(k, v)
+    plan = traffic(rng, oracle, iter(fresh.tolist()), absent)
+    dev_plan = [tuple(torch.tensor(x, device=dev) for x in (r[0], r[3], r[4],
+                                                             r[5]))
+                for r in plan]
+
+    t = Table.create(spec, device=dev)
+    check(t.plan().backend == "cuda", "main path plan")
+    torch.cuda.synchronize()
+    fused_probe.launches = fused_apply.launches = 0
+
+    t0 = time.perf_counter()
+    t, res = t.insert(torch.tensor(pre, device=dev),
+                      torch.tensor(pre_vals, device=dev))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(bool((res.status == T.TRUE).all()), "preload statuses")
+    depth_pre = int(t.depth())
+
+    outs = []
+    t0 = time.perf_counter()
+    for q, kinds, keys_, values in dev_plan:
+        outs.append(t.lookup(q))
+        t, res = t.apply(kinds, keys_, values)
+        outs.append(res.status)
+    torch.cuda.synchronize()
+    t_mix = time.perf_counter() - t0
+
+    for r, (q, found, vals, _, _, _, status) in enumerate(plan):
+        f, v = outs[2 * r]
+        check(np.array_equal(f.cpu().numpy(), found), f"round {r} found")
+        check(np.array_equal(v.cpu().numpy(), vals), f"round {r} values")
+        check(np.array_equal(outs[2 * r + 1].cpu().numpy(), status),
+              f"round {r} statuses")
+
+    # FROZEN through freeze_buddies, then one merge of another pair
+    snap = T.to_numpy(t.state)
+    parents = mergeable_parents(snap, cfg.dmax, cfg.bucket_size)
+    check(len(parents) >= 2, "no mergeable buddy pairs")
+    (fp, fd), (mp, md) = parents[0], parents[-1]
+    _, ok = T.freeze_buddies(cfg, t.state, fp, fd)
+    check(bool(ok), "freeze_buddies")
+    b0 = int(snap["directory"][(fp * 2) << (cfg.dmax - fd - 1)])
+    victim = next(int(k) for k in snap["keys"][b0] if k != EMPTY)
+    t, res = t.insert([victim], [7])
+    check(int(res.status[0]) == T.FROZEN, "frozen bucket status")
+    m0 = int(snap["directory"][(mp * 2) << (cfg.dmax - md - 1)])
+    m1 = int(snap["directory"][(mp * 2 + 1) << (cfg.dmax - md - 1)])
+    moved = [int(k) for k in np.r_[snap["keys"][m0], snap["keys"][m1]]
+             if k != EMPTY]
+    t, ok = t.merge(mp, md)
+    check(bool(ok), "merge")
+    f, v = t.lookup(moved)
+    check(bool(f.all()) and v.tolist() == [oracle.d[k] for k in moved],
+          "merged keys")
+    torch.cuda.synchronize()
+    launches = {"fused_probe": fused_probe.launches,
+                "fused_apply": fused_apply.launches}
+
+    snap = T.to_numpy(t.state)
+    check(not bool(snap["error"]), "error flag")
+    check_invariants(cfg, snap)
+    check(to_dict(cfg, snap) == oracle.d, "final content")
+    check(all(c > 0 for c in launches.values()), f"launches {launches}")
+    n_look = ROUNDS * LOOKUPS_PER_ROUND
+    n_write = ROUNDS * MAIN_SPEC["n_lanes"]
+    emit({"phase": "main_path", "spec": MAIN_SPEC, "preload_keys": PRELOAD,
+          "preload_s": t_pre, "preload_inserts_per_s": PRELOAD / t_pre,
+          "mixed_rounds": ROUNDS, "lookups": n_look, "writes": n_write,
+          "mixed_s": t_mix, "mixed_ops_per_s": (n_look + n_write) / t_mix,
+          "depth_after_preload": depth_pre, "depth": int(snap["depth"]),
+          "live_buckets": int(snap["live"].sum()), "size": len(oracle.d),
+          "launches": launches, "ok": True})
+    return t, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the cuda plan against the plain plan
+
+
+def plan_parity(t, rng, dev):
+    from repro_torch.core import table as T
+    from repro_torch.table_api import Table, TableSpec
+
+    snap = T.to_numpy(t.state)
+    tables = {b: Table.from_state(TableSpec(**MAIN_SPEC, backend=b),
+                                  T.from_numpy_state(snap, dev), t.seq)
+              for b in ("cuda", "plain")}
+    live = snap["keys"][snap["live"]]
+    live = live[live != EMPTY]
+    secs = {"cuda": 0.0, "plain": 0.0}
+    for step in range(64):
+        kinds = rng.integers(0, 3, size=512).astype(np.int32)
+        keys = np.where(rng.random(512) < 0.5, rng.choice(live, size=512),
+                        rng.integers(1, 2**31 - 1, size=512)).astype(np.int32)
+        vals = rng.integers(0, 2**31 - 1, size=512).astype(np.int32)
+        q = torch.tensor(np.r_[keys, rng.choice(live, size=512)], device=dev)
+        out = {}
+        for b, tb in tables.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb, res = tb.apply(kinds, keys, vals)
+            found, v = tb.lookup(q)
+            torch.cuda.synchronize()
+            secs[b] += time.perf_counter() - t0
+            tables[b] = tb
+            out[b] = (res.status, found, v)
+        for x, y in zip(out["cuda"], out["plain"]):
+            check(torch.equal(x, y), f"plan parity step {step}")
+    a, b = (T.to_numpy(tables[k].state) for k in ("cuda", "plain"))
+    P = MAIN_SPEC["pool_size"]
+    for f in a:
+        x, y = a[f], b[f]
+        if x.ndim and x.shape[0] == P + 1:
+            x, y = x[:P], y[:P]
+        if f in ("keys", "vals"):
+            # rows as sets: the lane-order kernel and the single fast pass
+            # may place a fresh insert in different free slots of a bucket
+            order_x = np.argsort(a["keys"][:P], axis=1, kind="stable")
+            order_y = np.argsort(b["keys"][:P], axis=1, kind="stable")
+            x = np.take_along_axis(x, order_x, 1)
+            y = np.take_along_axis(y, order_y, 1)
+        check(np.array_equal(x, y), f"plan parity state field {f}")
+    emit({"phase": "plan_parity", "transactions": 64,
+          "ms_per_transaction_cuda": secs["cuda"] / 64 * 1e3,
+          "ms_per_transaction_plain": secs["plain"] / 64 * 1e3, "ok": True})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: where a mixed round's time goes
+
+
+def mixed_batches(rng, live, fresh, dev, rounds):
+    """``rounds`` (queries, kinds, keys, values) of the main path's mix on
+    the device: lookups half live keys; 128 new inserts, 128 updates, 128
+    deletes of live keys, 128 deletes of never-inserted keys."""
+    h = LOOKUPS_PER_ROUND // 2
+    out = []
+    for r in range(rounds):
+        q = np.r_[rng.choice(live, h), rng.choice(fresh, h)]
+        keys = np.r_[fresh[r * 128:(r + 1) * 128],
+                     rng.choice(live, 256, replace=False),
+                     rng.choice(fresh[-10_000:], 128)]
+        kinds = np.r_[np.full(256, 1), np.full(256, 2)]
+        perm = rng.permutation(512)
+        vals = rng.integers(0, 2**31 - 1, 512)
+        out.append(tuple(torch.tensor(x.astype(np.int32), device=dev) for x in
+                         (rng.permutation(q), kinds[perm], keys[perm], vals)))
+    return out
+
+
+def profile_rounds(t, rng, dev, rounds=16):
+    """Run A times the slow path (``apply_batch`` behind ST_FULL, wrapped
+    with synchronizing host timers); run B traces the same kind of rounds
+    with torch.profiler for the device's busy time and top kernels."""
+    from torch.autograd import DeviceType
+
+    from repro_torch.core import table as T
+
+    snap = T.to_numpy(t.state)
+    live = snap["keys"][snap["live"]]
+    live = live[live != EMPTY]
+    fresh = distinct_keys(rng, 2 * rounds * 128 + 20_000)
+    fresh = fresh[~np.isin(fresh, live)]
+    a, b = (mixed_batches(rng, live, fresh[i::2], dev, rounds)
+            for i in range(2))
+
+    slow = {"calls": 0, "s": 0.0}
+    apply_batch = T.apply_batch
+
+    def timed_apply_batch(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply_batch(*args)
+        torch.cuda.synchronize()
+        slow["s"] += time.perf_counter() - t0
+        slow["calls"] += 1
+        return out
+
+    def run(t, batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q, kinds, keys, vals in batches:
+            t.lookup(q)
+            t, res = t.apply(kinds, keys, vals)
+        torch.cuda.synchronize()
+        return t, time.perf_counter() - t0
+
+    T.apply_batch = timed_apply_batch
+    try:
+        t, wall_a = run(t, a)
+    finally:
+        T.apply_batch = apply_batch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t, wall_b = run(t, b)
+    busy, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            busy += us
+            name = e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + us
+    check(not bool(t.state.error), "error flag after profiled rounds")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "profile", "rounds": rounds,
+          "ms_per_round": wall_a / rounds * 1e3,
+          "slow_path_transactions": slow["calls"],
+          "slow_path_share_of_wall": slow["s"] / wall_a,
+          "traced_ms_per_round": wall_b / rounds * 1e3,
+          "device_busy_ms_per_round": (busy / 1e3 / rounds if busy
+                                       else "not measured"),
+          "device_idle_share": 1 - busy / 1e3 / (wall_b * 1e3) if busy
+          else "not measured",
+          "top_device_ms_per_round": {k: v / 1e3 / rounds for k, v in top},
+          "ok": True})
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel times at the main path's shapes
+
+
+def apply_bytes_needed(kinds, status, bids, B):
+    """Bytes one ``fused_apply`` launch must move, from its own statuses:
+    per lane the op (12 B), its directory and frozen entries (4 + 1 B), its
+    status and bid (8 B); one key-row read per bucket an op reached (TRUE,
+    FALSE or FULL); a key-row and a value-row write per bucket a TRUE op
+    changed (a fresh insert, or a delete that clears its slot and value);
+    a value-row write per bucket whose only change is a FALSE upsert.
+    Returns (bytes, buckets reached)."""
+    from repro_torch.kernels.apply import ST_FALSE, ST_FULL, ST_TRUE
+    row = B * 4
+
+    def rows(mask):
+        return int(torch.unique(bids[mask]).numel())
+
+    hit = status == ST_TRUE
+    reached = rows(hit | (status == ST_FALSE) | (status == ST_FULL))
+    key_rows = rows(hit)
+    val_rows = rows(hit | ((status == ST_FALSE) & (kinds == 1)))
+    n = kinds.shape[0]
+    return (n * (12 + 4 + 1 + 8) + (reached + key_rows + val_rows) * row,
+            reached)
+
+
+def kernel_times(t, rng, dev, launches, checks):
+    from repro_torch.core import table as T
+    from repro_torch.kernels.apply import fused_apply, fused_apply_plain
+    from repro_torch.kernels.lookup import fused_probe, fused_probe_plain
+
+    cfg = t.config
+    st = t.state
+    B, n, N = cfg.bucket_size, cfg.n_lanes, LOOKUPS_PER_ROUND
+    snap = T.to_numpy(st)
+    live = snap["keys"][snap["live"]]
+    live = live[live != EMPTY]
+    # fresh queries per launch, half hits: the rows are cold in L2
+    qs = [torch.tensor(np.where(rng.random(N) < 0.5, rng.choice(live, N),
+                                rng.integers(1, 2**31 - 1, N)).astype(
+                                    np.int32), device=dev)
+          for _ in range(64)]
+    pk, pv = st.keys[:-1], st.vals[:-1]
+    kw = dict(dmax=cfg.dmax)
+    probe_ms = cuda_ms(lambda i: fused_probe(st.directory, qs[i % 64], pk, pv,
+                                             **kw), 200)
+    probe_plain_ms = cuda_ms(lambda i: fused_probe_plain(
+        st.directory, qs[i % 64], pk, pv, **kw), 20)
+    hits = sum(int(fused_probe_plain(st.directory, q, pk, pv, **kw)[0].sum())
+               for q in qs) / len(qs)
+    probe_bytes = N * (4 + 4 + 4 * B + 1 + 4) + hits * 4
+    probe_ops = N * (12 + 2 * B)
+
+    # fused_apply on a scratch copy of the main state's pools
+    ops = []
+    for _ in range(64):
+        kinds = rng.integers(1, 3, size=n).astype(np.int32)
+        keys = np.where(rng.random(n) < 0.5, rng.choice(live, n),
+                        rng.integers(1, 2**31 - 1, n)).astype(np.int32)
+        ops.append([torch.tensor(x, device=dev) for x in (
+            kinds, keys, rng.integers(0, 2**31 - 1, n).astype(np.int32))])
+    spk, spv = st.keys.clone(), st.vals.clone()
+    runs = []
+    apply_ms = cuda_ms(lambda i: runs.append((i, fused_apply(
+        st.directory, st.frozen, *ops[i % 64], spk, spv, **kw))), 200)
+    apply_bytes, buckets = np.mean(
+        [apply_bytes_needed(ops[i % 64][0], out[2], out[3], B)
+         for i, out in runs[2:]], axis=0)
+    apply_plain_ms = host_ms(lambda i: fused_apply_plain(
+        st.directory, st.frozen, *ops[i % 64], spk, spv, **kw), 20)
+    apply_ops = n * (12 + 4 * B)
+
+    # "replaces": the TPU kernel the JAX package runs at the main path's
+    # geometry. Its fused kernels stop at dmax 17 (and the fused apply at
+    # 2**17 pool rows), so at dmax 20 it routes in XLA and launches the
+    # unfused probe and the grouped apply; below those bounds the two CUDA
+    # kernels stand in for fused_probe (lookup.py:190) and fused_apply
+    # (apply.py:307)
+    out = []
+    for name, src, replaces, ms, plain, nb, no in (
+            ("fused_probe", "src/repro_torch/csrc/fused_probe.cu",
+             "src/repro/kernels/lookup.py:92", probe_ms, probe_plain_ms,
+             probe_bytes, probe_ops),
+            ("fused_apply", "src/repro_torch/csrc/fused_apply.cu",
+             "src/repro/kernels/apply.py:102", apply_ms, apply_plain_ms,
+             apply_bytes, apply_ops)):
+        b_ms, b_by = bound_ms(nb, no)
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "mismatches": checks[name][0],
+                    "max_abs_err": checks[name][1], "ms": ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None})
+    emit({"phase": "kernel_times", "fused_probe_queries": N,
+          "fused_apply_lanes": n, "probe_bytes": probe_bytes,
+          "apply_bytes": apply_bytes, "apply_buckets": buckets, "ok": True})
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(args.seed)
+    smi = smi_line()
+    build_s = _build.build_all()
+    emit({"phase": "build", "build_s": build_s, "gpu": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    checks = kernel_checks(rng, dev)
+    t, launches = main_path(rng, dev)
+    plan_parity(t, rng, dev)
+    t = profile_rounds(t, rng, dev)
+    kernels = kernel_times(t, rng, dev, launches, checks)
+    print(smi_line(), flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""The fused apply kernel: the table's whole fast-path write transaction.
+
+``fused_apply`` launches the hand-written CUDA kernel
+(``csrc/fused_apply.cu``: one thread block per transaction, one leader
+thread per bucket group) for CUDA tensors and runs ``fused_apply_plain``,
+its plain PyTorch version, for CPU tensors. It replaces the Pallas TPU
+kernel ``repro/kernels/apply.py::fused_apply`` and, beyond that kernel's
+bounds (dmax > 17, more than 2**17 pool rows), the XLA route and sort plus
+``grouped_apply``. It has the contract of
+``repro/kernels/ref.py::fused_apply_ref``.
+
+Ops never resize here: an op that meets a full bucket reports ``ST_FULL``
+and is left to the split rounds of ``core/table.py::apply_batch`` (the
+paper's FAIL → ResizeWF slow path, wired in ``kernels/ops.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.hashing import HASH_IDS, dir_index, hash_fn
+from repro_torch.core.table import wave_combine
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import (check_i32_vector, check_pools,
+                                         check_tensor)
+
+# status codes shared with the kernel (ST_FROZEN == table.FROZEN)
+ST_IDLE = -1
+ST_FALSE = 0
+ST_TRUE = 1
+ST_FROZEN = -2
+ST_FULL = -3
+
+# the kernel's geometry: one thread per lane in one block, and a leader
+# keeps its bucket row in registers
+MAX_LANES = 1024
+MAX_BUCKET_SIZE = 32
+
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def fused_apply_supported(n_lanes: int, bucket_size: int) -> bool:
+    return 0 < n_lanes <= MAX_LANES and 0 < bucket_size <= MAX_BUCKET_SIZE
+
+
+def fused_apply_plain(directory, frozen, kinds, keys, values, pool_keys,
+                      pool_vals, *, dmax: int, hash_name: str = "fmix32",
+                      hash_shift: int = 0):
+    """Plain version of the kernel, the contract of ``fused_apply_ref``:
+    ops apply in lane order. It is the plain transaction's wave loop
+    (``core/table.py::wave_combine``) with the kernel's statuses."""
+    bids = directory[dir_index(hash_fn(hash_name, hash_shift)(keys), dmax)]
+    applied, full, _, exist = wave_combine(
+        pool_keys, pool_vals, frozen, bids, (kinds == 1) | (kinds == 2),
+        kinds, keys, values)
+    status = torch.where(kinds == 0, ST_IDLE, ST_FROZEN)
+    status = torch.where(applied, torch.where(kinds == 1, ~exist, exist)
+                         .to(torch.int32), status)
+    status = torch.where(full, ST_FULL, status).to(torch.int32)
+    return pool_keys, pool_vals, status, bids
+
+
+def fused_apply(directory: torch.Tensor, frozen: torch.Tensor,
+                kinds: torch.Tensor, keys: torch.Tensor,
+                values: torch.Tensor, pool_keys: torch.Tensor,
+                pool_vals: torch.Tensor, *, dmax: int,
+                hash_name: str = "fmix32", hash_shift: int = 0):
+    """The fused combining write transaction, one kernel launch.
+
+    directory i32[2**dmax]; frozen bool[P+1]; kinds i32[n] (0 = idle,
+    1 = insert/upsert, 2 = delete), keys / values i32[n]; pool_keys /
+    pool_vals the FULL [P+1, B] pools, trash row included.
+
+    The pools are updated **in place** and returned: the caller's previous
+    pool tensors (and a ``TableState`` holding them) are consumed. Returns
+    (pool_keys, pool_vals, status i32[n], bucket_ids i32[n]) with status in
+    {ST_TRUE, ST_FALSE, ST_FULL, ST_FROZEN, ST_IDLE}. The trash row's
+    content is unspecified afterwards. Geometry bound: 1 <= n <= 1024 and
+    B <= 32 (``fused_apply_supported``)."""
+    dev = directory.device
+    n = kinds.shape[0]
+    if directory.shape != (1 << dmax,):
+        raise ValueError(f"directory shape {tuple(directory.shape)} != "
+                         f"(2**{dmax},)")
+    check_i32_vector("directory", directory, dev)
+    check_pools(pool_keys, pool_vals, dev)
+    check_tensor("frozen", frozen, torch.bool, dev,
+                 shape=(pool_keys.shape[0],))
+    for name, t in (("kinds", kinds), ("keys", keys), ("values", values)):
+        check_i32_vector(name, t, dev, n)
+    if dev.type == "cpu":
+        return fused_apply_plain(directory, frozen, kinds, keys, values,
+                                 pool_keys, pool_vals, dmax=dmax,
+                                 hash_name=hash_name, hash_shift=hash_shift)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_apply runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    if not fused_apply_supported(n, pool_keys.shape[1]):
+        raise ValueError(f"geometry outside the fused-apply kernel: "
+                         f"n={n} (max {MAX_LANES}), B={pool_keys.shape[1]} "
+                         f"(max {MAX_BUCKET_SIZE})")
+    status = torch.empty(n, dtype=torch.int32, device=dev)
+    bids = torch.empty(n, dtype=torch.int32, device=dev)
+    launch = _build.load("fused_apply.cu", "fused_apply_launch", _ARGTYPES)
+    rc = launch(directory.data_ptr(), frozen.data_ptr(), kinds.data_ptr(),
+                keys.data_ptr(), values.data_ptr(), pool_keys.data_ptr(),
+                pool_vals.data_ptr(), status.data_ptr(), bids.data_ptr(), n,
+                pool_keys.shape[1], dmax, HASH_IDS[hash_name], hash_shift,
+                torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_apply")
+    fused_apply.launches += 1
+    return pool_keys, pool_vals, status, bids
+
+
+fused_apply.launches = 0

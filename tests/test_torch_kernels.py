@@ -1,0 +1,281 @@
+"""The PyTorch port's kernels: plain versions against the JAX package, and
+the CUDA kernels against their plain versions.
+
+On the CPU the kernel wrappers run their plain versions, which must equal
+the JAX references exactly (integers, tolerance 0):
+``fused_probe_plain`` ≡ ``repro.kernels.lookup.fused_probe`` in interpret
+mode, and ``fused_apply_plain`` ≡ ``repro.kernels.ref.fused_apply_ref``
+(the Pallas apply kernel itself cannot run in interpret mode on JAX 0.9,
+which dropped ``pl.load``/``pl.store``). The ``cuda``-marked tests launch the
+CUDA kernels on the card and compare them with the plain versions; they
+skip where there is no card.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.hashing import EMPTY_KEY, hash_np
+from repro_torch.kernels import apply as tapply
+from repro_torch.kernels import lookup as tlookup
+
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from repro.core import table as JT
+    from repro.kernels import lookup as jlookup
+    from repro.kernels import ref as kref
+    jax.config.update("jax_platform_name", "cpu")
+except ModuleNotFoundError:
+    # the GPU machine has no JAX: there only the cuda-marked tests run
+    # (python -m pytest -m cuda tests/test_torch_kernels.py)
+    jax = None
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX")
+ST_IDLE, ST_FALSE, ST_TRUE, ST_FROZEN, ST_FULL = (
+    tapply.ST_IDLE, tapply.ST_FALSE, tapply.ST_TRUE, tapply.ST_FROZEN,
+    tapply.ST_FULL)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# seeded cases (numpy, shared by both frameworks)
+
+
+def probe_case(rng, dmax, P, B, N, hash_name="fmix32", hash_shift=0):
+    """Directory, pools with unique keys per row, and queries: about half
+    hits (keys placed in the row their hash routes to), misses, an EMPTY
+    query and the extreme keys ±(2**31 - 1)."""
+    directory = rng.integers(0, P, size=1 << dmax).astype(np.int32)
+    keys = np.full((P, B), EMPTY_KEY, np.int32)
+    vals = rng.integers(-2**31, 2**31, size=(P, B),
+                        dtype=np.int64).astype(np.int32)
+    q = rng.integers(-2**31 + 1, 2**31, size=N, dtype=np.int64).astype(
+        np.int32)
+    q[:3] = [EMPTY_KEY, 2**31 - 1, -2**31 + 1]
+    rows = directory[(hash_np(hash_name, q, hash_shift)
+                      >> np.uint32(32 - dmax)).astype(np.int64)]
+    for i in range(1, N):
+        if rng.random() < 0.5:
+            free = np.nonzero(keys[rows[i]] == EMPTY_KEY)[0]
+            if free.size and q[i] not in keys[rows[i]]:
+                keys[rows[i], free[0]] = q[i]
+    filler = rng.random((P, B)) < 0.3
+    keys[filler & (keys == EMPTY_KEY)] = -7   # never queried (distinct rows)
+    return directory, q, keys, vals
+
+
+def fused_case(rng, dmax, P, B, fill=0.6, frozen_frac=0.25):
+    """Directory, frozen mask and [P+1, B] pools, as the JAX package's
+    ``tests/test_kernels.py::random_fused_case`` (ops: ``fused_ops``)."""
+    directory = rng.integers(0, P, size=1 << dmax).astype(np.int32)
+    frozen = np.zeros(P + 1, bool)
+    frozen[:P] = rng.random(P) < frozen_frac
+    pk = np.full((P + 1, B), EMPTY_KEY, np.int32)
+    pv = np.zeros((P + 1, B), np.int32)
+    for p in range(P + 1):
+        k = rng.choice(np.arange(1, 10_000), size=B, replace=False)
+        occ = rng.random(B) < fill
+        pk[p, occ] = k[occ]
+        pv[p, occ] = rng.integers(0, 1 << 20, size=occ.sum())
+    return directory, frozen, pk, pv
+
+
+def fused_ops(rng, n, key_hi=64, ins_frac=None):
+    if ins_frac is None:
+        kinds = rng.integers(0, 3, size=n).astype(np.int32)
+    else:
+        kinds = np.where(rng.random(n) < ins_frac, 1, 2).astype(np.int32)
+    keys = rng.integers(1, key_hi, size=n).astype(np.int32)
+    values = rng.integers(0, 1 << 15, size=n).astype(np.int32)
+    return kinds, keys, values
+
+
+def t(x, device="cpu"):
+    return torch.tensor(np.asarray(x), device=device)
+
+
+# ---------------------------------------------------------------------------
+# fused probe: plain version ≡ JAX fused_probe (interpret)
+
+
+@needs_jax
+@pytest.mark.parametrize("dmax,P,B,N,hash_name,shift", [
+    (4, 16, 4, 64, "fmix32", 0),
+    (6, 64, 8, 300, "fmix32", 1),
+    (7, 100, 8, 257, "identity", 0),
+    (8, 200, 8, 512, "fmix32", 0),
+    (8, 130, 16, 200, "identity", 1),
+])
+def test_fused_probe_plain_matches_jax_kernel(dmax, P, B, N, hash_name,
+                                              shift):
+    rng = np.random.default_rng(dmax * 100 + N)
+    directory, q, pk, pv = probe_case(rng, dmax, P, B, N, hash_name, shift)
+    jf, jv = jlookup.fused_probe(
+        jnp.asarray(directory), jnp.asarray(q), jnp.asarray(pk),
+        jnp.asarray(pv), dmax=dmax, hash_name=hash_name, hash_shift=shift,
+        interpret=True)
+    tf, tv = tlookup.fused_probe(t(directory), t(q), t(pk), t(pv),
+                                 dmax=dmax, hash_name=hash_name,
+                                 hash_shift=shift)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert 0 < int(tf.sum()) < N      # hits and misses both exercised
+    assert tlookup.fused_probe.launches == 0   # CPU tensors: no launch
+
+
+@needs_jax
+def test_empty_query_never_matches():
+    """The kernel contract the port follows: an EMPTY_KEY query is never
+    found, even when its row has free slots. ``repro.core.table.lookup``
+    (and ``ref.probe_ref``) would match it to a free slot instead."""
+    dmax, P, B = 4, 8, 4
+    directory = np.arange(1 << dmax, dtype=np.int32) % P
+    pk = np.full((P, B), EMPTY_KEY, np.int32)
+    pk[:, 0] = np.arange(1, P + 1)
+    pv = np.arange(P * B, dtype=np.int32).reshape(P, B)
+    q = np.array([EMPTY_KEY, 3, EMPTY_KEY], np.int32)
+    tf, tv = tlookup.fused_probe_plain(t(directory), t(q), t(pk), t(pv),
+                                       dmax=dmax)
+    jf, jv = jlookup.fused_probe(jnp.asarray(directory), jnp.asarray(q),
+                                 jnp.asarray(pk), jnp.asarray(pv),
+                                 dmax=dmax, interpret=True)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert not tf[0] and not tf[2] and tv[0] == -1
+    # the divergence, pinned: the JAX transaction-side lookup finds it
+    cfg = JT.TableConfig(dmax=dmax, bucket_size=B, pool_size=P, n_lanes=4)
+    found, _ = JT.lookup(cfg, JT.init_table(cfg), jnp.asarray(q[:1]))
+    assert bool(found[0])
+
+
+# ---------------------------------------------------------------------------
+# fused apply: plain version ≡ fused_apply_ref over carried rounds
+
+
+def run_fused_rounds(rng, dmax, P, B, n, *, fill, frozen_frac=0.25,
+                     key_hi=64, ins_frac=None, rounds=3):
+    """Carry the pools through ``rounds`` batches in both frameworks; live
+    rows, statuses and bucket ids must match exactly (the trash row is
+    unspecified by contract). Returns every round's statuses."""
+    directory, frozen, pk, pv = fused_case(rng, dmax, P, B, fill,
+                                           frozen_frac)
+    jpk, jpv = jnp.asarray(pk), jnp.asarray(pv)
+    tpk, tpv = t(pk), t(pv)
+    seen = []
+    for r in range(rounds):
+        kinds, keys, values = fused_ops(rng, n, key_hi, ins_frac)
+        jpk, jpv, jst, jbid = kref.fused_apply_ref(
+            jnp.asarray(directory), jnp.asarray(frozen), jnp.asarray(kinds),
+            jnp.asarray(keys), jnp.asarray(values), jpk, jpv, dmax=dmax)
+        tpk, tpv, tst, tbid = tapply.fused_apply(
+            t(directory), t(frozen), t(kinds), t(keys), t(values), tpk, tpv,
+            dmax=dmax)
+        np.testing.assert_array_equal(tbid.numpy(), np.asarray(jbid),
+                                      err_msg=f"round {r}: bucket ids")
+        np.testing.assert_array_equal(tst.numpy(), np.asarray(jst),
+                                      err_msg=f"round {r}: status")
+        np.testing.assert_array_equal(tpk.numpy()[:P], np.asarray(jpk)[:P],
+                                      err_msg=f"round {r}: pool keys")
+        np.testing.assert_array_equal(tpv.numpy()[:P], np.asarray(jpv)[:P],
+                                      err_msg=f"round {r}: pool vals")
+        seen.append(tst.numpy())
+    return np.concatenate(seen)
+
+
+@needs_jax
+@pytest.mark.parametrize("dmax,P,B,n,fill", [
+    (6, 16, 4, 8, 0.5),
+    (6, 64, 8, 32, 0.6),
+    (8, 100, 8, 64, 0.5),     # non-power-of-two P
+    (6, 32, 16, 16, 0.95),    # near-full pools → ST_FULL
+    (4, 8, 4, 8, 1.0),        # everything full
+])
+def test_fused_apply_plain_matches_ref(dmax, P, B, n, fill):
+    rng = np.random.default_rng(dmax * 1000 + P + n)
+    status = run_fused_rounds(rng, dmax, P, B, n, fill=fill)
+    assert status.size == 3 * n
+
+
+@needs_jax
+@pytest.mark.parametrize("ins_frac", [0.0, 0.5, 1.0])
+def test_fused_apply_plain_duplicate_keys(ins_frac):
+    """Heavy intra-batch duplicate keys (~3 lanes per key): the lane-order
+    combine within a bucket group is the only order that matters."""
+    rng = np.random.default_rng(int(ins_frac * 7) + 11)
+    run_fused_rounds(rng, 6, 32, 4, 32, fill=0.5, key_hi=12,
+                     ins_frac=ins_frac, rounds=2)
+
+
+@needs_jax
+def test_fused_apply_plain_status_space_covered():
+    """All five statuses — TRUE, FALSE, FULL, FROZEN, IDLE — in one
+    adversarial geometry (alternating sparse and packed pools)."""
+    rng = np.random.default_rng(5)
+    seen = np.concatenate([
+        run_fused_rounds(rng, 5, 16, 4, 64, fill=0.45 if trial % 2 else 0.95,
+                         frozen_frac=0.4, key_hi=32, rounds=2)
+        for trial in range(4)])
+    for code in (ST_IDLE, ST_FALSE, ST_TRUE, ST_FROZEN, ST_FULL):
+        assert (seen == code).any(), f"status {code} never produced"
+
+
+def test_wrappers_reject_bad_arguments():
+    directory = torch.zeros(16, dtype=torch.int32)
+    pk = torch.full((5, 4), EMPTY_KEY, dtype=torch.int32)
+    pv = torch.zeros((5, 4), dtype=torch.int32)
+    q = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tlookup.fused_probe(directory, q, pk, pv, dmax=3)
+    with pytest.raises(TypeError):
+        tlookup.fused_probe(directory, q.long(), pk, pv, dmax=4)
+    with pytest.raises(ValueError):
+        tapply.fused_apply(directory, torch.zeros(5, dtype=torch.bool), q, q,
+                           q[:2], pk, pv, dmax=4)
+    with pytest.raises(ValueError):
+        tapply.fused_apply(directory, torch.zeros(5, dtype=torch.bool), q, q,
+                           q, pk.t(), pv.t(), dmax=4)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels ≡ their plain versions (on the card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmax,P,B,N", [(6, 64, 8, 1000), (10, 700, 4, 333),
+                                        (16, 1 << 14, 8, 1 << 16)])
+def test_cuda_fused_probe_equals_plain(cuda, dmax, P, B, N):
+    rng = np.random.default_rng(N)
+    args = [t(x, cuda) for x in probe_case(rng, dmax, P, B, N)]
+    before = tlookup.fused_probe.launches
+    kf, kv = tlookup.fused_probe(*args, dmax=dmax)
+    pf, pv_ = tlookup.fused_probe_plain(*args, dmax=dmax)
+    torch.cuda.synchronize()
+    assert tlookup.fused_probe.launches == before + 1
+    assert torch.equal(kf, pf) and torch.equal(kv, pv_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmax,P,B,n,fill", [(5, 16, 4, 64, 0.95),
+                                             (8, 100, 8, 512, 0.6),
+                                             (6, 32, 16, 1024, 0.8)])
+def test_cuda_fused_apply_equals_plain(cuda, dmax, P, B, n, fill):
+    rng = np.random.default_rng(n + P)
+    directory, frozen, pk, pv = fused_case(rng, dmax, P, B, fill)
+    d, fr = t(directory, cuda), t(frozen, cuda)
+    kpk, kpv, ppk, ppv = (t(x, cuda) for x in (pk, pv, pk, pv))
+    for r in range(3):
+        ops = [t(x, cuda) for x in fused_ops(rng, n)]
+        _, _, kst, kbid = tapply.fused_apply(d, fr, *ops, kpk, kpv, dmax=dmax)
+        _, _, pst, pbid = tapply.fused_apply_plain(d, fr, *ops, ppk, ppv,
+                                                   dmax=dmax)
+        torch.cuda.synchronize()
+        assert torch.equal(kst, pst) and torch.equal(kbid, pbid), r
+        assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
+                                                             ppv[:P]), r
