@@ -7,22 +7,33 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` and runs, each phase
 printing one JSON line:
 
 1. build: kernel build seconds, the card's name and power limit;
-2. kernels: ``fused_probe`` (2**20 queries) and ``fused_apply`` (512-lane
-   batches over carried rounds, all five statuses) against their plain
-   PyTorch versions at the main path's shapes — integers, tolerance 0;
+2. kernels: each kernel against its plain PyTorch version at the shapes of
+   the path that launches it — integers, tolerance 0: ``fused_probe`` and
+   ``probe`` (2**20 queries, the latter routed beforehand), ``fused_apply``
+   (512-lane batches, all five statuses) and ``grouped_apply`` (4,096 lanes
+   sorted by (bucket, lane), idle lanes on live buckets), over carried
+   rounds;
 3. main path at full size through the ``Table`` facade:
    ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
    initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
    lookup and one 512-op write transaction (90% lookups), a FROZEN status
    through ``freeze_buddies`` and one ``merge``; every status and lookup
    against a dict oracle, the final content, the invariants, the error
-   flag, and both kernels' launch counts on this phase;
-4. the whole path under the ``"cuda"`` plan against the ``"plain"`` plan on
-   the same card: statuses, lookups and state;
-5. where a mixed round's time goes: the slow path's share (host timers)
-   and the device's busy time and top kernels (torch.profiler);
-6. kernel times (CUDA events) at the main path's shapes beside their plain
-   versions and their bound.
+   flag, and the launch counts on this phase (the fused kernels only);
+4. wide path: the main table saved (``Table.save``) and restored into the
+   same geometry with 4,096-lane transactions (``Table.restore``), past the
+   fused apply kernel, so the plan runs ``grouped_apply`` and ``probe``;
+   the restored content, invariants, error flag and a re-saved image
+   identical to the first; then 64 rounds of one 36,864-key lookup and one
+   4,096-op write against the oracle, and the launch counts (the unfused
+   kernels only);
+5. both paths under the ``"cuda"`` plan against the ``"plain"`` plan on the
+   same card: statuses, lookups and state;
+6. where a main-path mixed round's time goes: the slow path's share (host
+   timers) and the device's busy time and top kernels (torch.profiler);
+7. kernel times (CUDA events) at each path's shapes beside their plain
+   versions and their bound, with the PyTorch route and sort around the
+   unfused kernels and the fused probe on the wide path's queries.
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -54,6 +65,13 @@ MAIN_SPEC = dict(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
 LOOKUPS_PER_ROUND = 4608
 ROUNDS = 256
 PRELOAD = 2**19
+# the wide path: the main path's geometry with 4,096-lane transactions, past
+# the fused apply kernel's 1,024 lanes, so writes take grouped_apply and
+# lookups probe; restored from the main path's image, then the same 90/10
+# mix at eight times the width
+WIDE_SPEC = dict(MAIN_SPEC, n_lanes=4096)
+WIDE_LOOKUPS = 8 * LOOKUPS_PER_ROUND
+WIDE_ROUNDS = 64
 
 
 def emit(obj) -> None:
@@ -142,11 +160,21 @@ def place_keys(pk, pv, keys, rows, limit, rng):
 # phase 2: kernels against their plain versions
 
 
+def sorted_ops(kinds, keys, values, bids, P):
+    """Ops in the order the table's grouped transaction gives
+    ``grouped_apply``: active ops by (bucket, lane), then the idle lanes in
+    lane order, which keep their real bucket ids."""
+    order = np.argsort(np.where(kinds != 0, bids, P + 1), kind="stable")
+    return [x[order].astype(np.int32) for x in (kinds, keys, values, bids)]
+
+
 def kernel_checks(rng, dev):
     from repro_torch.kernels.apply import (ST_FALSE, ST_FROZEN, ST_FULL,
                                            ST_IDLE, ST_TRUE, fused_apply,
-                                           fused_apply_plain)
-    from repro_torch.kernels.lookup import fused_probe, fused_probe_plain
+                                           fused_apply_plain, grouped_apply,
+                                           grouped_apply_plain)
+    from repro_torch.kernels.lookup import (fused_probe, fused_probe_plain,
+                                            probe, probe_plain)
 
     dmax, P, B = MAIN_SPEC["dmax"], MAIN_SPEC["pool_size"], 8
     # a directory at depth dmax-3 over a shuffled set of rows, filled to
@@ -179,6 +207,19 @@ def kernel_checks(rng, dev):
           f"in {probe_mm} outputs")
     check(bool(pf[1]) and bool(pf[2]) and not bool(pf[0]),
           "edge-key queries")
+
+    # probe: the same queries, routed beforehand on the host
+    bids = torch.tensor(route_np(q, directory, dmax).astype(np.int32),
+                        device=dev)
+    rargs = (bids,) + args[1:]
+    rf, rv = probe(*rargs)
+    rpf, rpv = probe_plain(*rargs)
+    torch.cuda.synchronize()
+    routed_mm = int((rf != rpf).sum() + (rv != rpv).sum()
+                    + (rf != pf).sum() + (rv != pvals).sum())
+    routed_err = int((rv.long() - rpv.long()).abs().max())
+    check(routed_mm == 0, f"probe disagrees with its plain version in "
+          f"{routed_mm} outputs")
 
     # fused_apply: 512-lane batches over hot rows of mixed fill, a frozen
     # mask, carried over rounds
@@ -217,13 +258,52 @@ def kernel_checks(rng, dev):
           f"{apply_mm} outputs")
     want = {ST_TRUE, ST_FALSE, ST_FULL, ST_FROZEN, ST_IDLE}
     check(want <= seen, f"statuses covered: {sorted(seen)}")
+
+    # grouped_apply: 4,096-lane batches sorted by (bucket, lane) over the
+    # same mixed fill, a quarter of the hot keys so that runs are long and
+    # rows fill up; idle lanes keep real bucket ids that collide with runs
+    m = WIDE_SPEC["n_lanes"]
+    k_pk, k_pv = torch.tensor(apk, device=dev), torch.tensor(apv, device=dev)
+    p_pk, p_pv = k_pk.clone(), k_pv.clone()
+    g_seen, g_mm, g_err, collide = set(), 0, 0, 0
+    for rnd in range(6):
+        kinds = rng.integers(0, 3, size=m)
+        keys = rng.choice(hot[:1024], size=m)
+        ops_np = sorted_ops(kinds, keys, rng.integers(0, 2**31 - 1, size=m),
+                            route_np(keys, directory, dmax), P)
+        live_rows = set(ops_np[3][ops_np[0] != 0].tolist())
+        collide += sum(r in live_rows for r in ops_np[3][ops_np[0] == 0])
+        ops = [torch.tensor(x, device=dev) for x in ops_np]
+        _, _, ks = grouped_apply(*ops, k_pk, k_pv)
+        _, _, ps = grouped_apply_plain(*ops, p_pk, p_pv)
+        torch.cuda.synchronize()
+        g_mm += int((ks != ps).sum() + (k_pk[:P] != p_pk[:P]).sum()
+                    + (k_pv[:P] != p_pv[:P]).sum())
+        g_err = max(g_err, int((k_pv[:P].long() - p_pv[:P].long())
+                               .abs().max()))
+        g_seen |= set(ks.tolist())
+    check(g_mm == 0, f"grouped_apply disagrees with its plain version in "
+          f"{g_mm} outputs")
+    check(bool((k_pk[P] == torch.tensor(apk[P], device=dev)).all()),
+          "grouped_apply wrote the trash row")
+    want = {ST_TRUE, ST_FALSE, ST_FULL, ST_IDLE}
+    check(want <= g_seen, f"grouped statuses covered: {sorted(g_seen)}")
+    check(collide > 0, "no idle lane collides with a live run")
     emit({"phase": "kernels", "fused_probe": {
         "queries": n_q, "found": int(kf.sum()), "mismatches": probe_mm,
-        "max_abs_err": probe_err}, "fused_apply": {
+        "max_abs_err": probe_err}, "probe": {
+        "queries": n_q, "found": int(rf.sum()), "mismatches": routed_mm,
+        "max_abs_err": routed_err}, "fused_apply": {
         "lanes": n, "rounds": 6, "statuses": sorted(seen),
-        "mismatches": apply_mm, "max_abs_err": apply_err}, "ok": True})
+        "mismatches": apply_mm, "max_abs_err": apply_err},
+        "grouped_apply": {
+        "lanes": m, "rounds": 6, "statuses": sorted(g_seen),
+        "idle_lanes_on_live_buckets": collide, "mismatches": g_mm,
+        "max_abs_err": g_err}, "ok": True})
     return {"fused_probe": (probe_mm, probe_err),
-            "fused_apply": (apply_mm, apply_err)}
+            "fused_apply": (apply_mm, apply_err),
+            "probe": (routed_mm, routed_err),
+            "grouped_apply": (g_mm, g_err)}
 
 
 # ---------------------------------------------------------------------------
@@ -255,31 +335,58 @@ class Oracle:
         return 1
 
 
-def traffic(rng, oracle: Oracle, fresh_iter, absent: np.ndarray):
+def traffic(rng, oracle: Oracle, fresh_iter, absent: np.ndarray, rounds,
+            n_lookups, n_writes):
     """Host-side ops for every round and the results the oracle expects:
     one lookup batch (half live keys, half never-inserted keys) and one
-    512-op transaction (128 new inserts, 128 updates, 128 deletes of live
-    keys, 128 deletes of absent keys, lanes shuffled)."""
-    rounds = []
-    h = LOOKUPS_PER_ROUND // 2
-    for _ in range(ROUNDS):
+    write transaction of ``n_writes`` ops (a quarter each: new inserts,
+    updates, deletes of live keys, deletes of absent keys; lanes
+    shuffled)."""
+    out = []
+    h, w = n_lookups // 2, n_writes // 4
+    for _ in range(rounds):
         live = np.asarray(oracle.keys, np.int32)
         q = np.r_[rng.choice(live, size=h), rng.choice(absent, size=h)]
         q = rng.permutation(q).astype(np.int32)
         found = np.array([k in oracle.d for k in q.tolist()])
         vals = np.array([oracle.d.get(k, -1) for k in q.tolist()], np.int32)
-        old = rng.choice(live, size=256, replace=False)
-        keys = np.r_[[next(fresh_iter) for _ in range(128)], old,
-                     rng.choice(absent, size=128)].astype(np.int32)
-        kinds = np.r_[np.full(256, 1), np.full(256, 2)].astype(np.int32)
-        perm = rng.permutation(512)
+        old = rng.choice(live, size=2 * w, replace=False)
+        keys = np.r_[[next(fresh_iter) for _ in range(w)], old,
+                     rng.choice(absent, size=w)].astype(np.int32)
+        kinds = np.r_[np.full(2 * w, 1), np.full(2 * w, 2)].astype(np.int32)
+        perm = rng.permutation(n_writes)
         keys, kinds = keys[perm], kinds[perm]
-        values = rng.integers(0, 2**31 - 1, size=512).astype(np.int32)
+        values = rng.integers(0, 2**31 - 1, size=n_writes).astype(np.int32)
         status = np.array([oracle.insert(k, v) if c == 1 else oracle.delete(k)
                            for c, k, v in zip(kinds.tolist(), keys.tolist(),
                                               values.tolist())], np.int8)
-        rounds.append((q, found, vals, kinds, keys, values, status))
-    return rounds
+        out.append((q, found, vals, kinds, keys, values, status))
+    return out
+
+
+def run_rounds(t, plan, dev):
+    """Drive ``plan``'s rounds through the facade (a lookup, then a write
+    transaction) and check every lookup and status against the oracle's.
+    Returns (table, seconds of the driven rounds)."""
+    dev_plan = [tuple(torch.tensor(x, device=dev) for x in (r[0], r[3], r[4],
+                                                             r[5]))
+                for r in plan]
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q, kinds, keys_, values in dev_plan:
+        outs.append(t.lookup(q))
+        t, res = t.apply(kinds, keys_, values)
+        outs.append(res.status)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for r, (q, found, vals, _, _, _, status) in enumerate(plan):
+        f, v = outs[2 * r]
+        check(np.array_equal(f.cpu().numpy(), found), f"round {r} found")
+        check(np.array_equal(v.cpu().numpy(), vals), f"round {r} values")
+        check(np.array_equal(outs[2 * r + 1].cpu().numpy(), status),
+              f"round {r} statuses")
+    return t, secs
 
 
 def mergeable_parents(snap, dmax, B):
@@ -298,28 +405,25 @@ def mergeable_parents(snap, dmax, B):
 def main_path(rng, dev):
     from repro_torch.core import table as T
     from repro_torch.core.invariants import check_invariants, to_dict
-    from repro_torch.kernels.apply import fused_apply
-    from repro_torch.kernels.lookup import fused_probe
     from repro_torch.table_api import Table, TableSpec
 
     spec = TableSpec(**MAIN_SPEC, backend="cuda")
     cfg = spec.table_config()
     n_absent = PRELOAD // 2
-    keys = distinct_keys(rng, PRELOAD + ROUNDS * 128 + n_absent)
-    pre, fresh, absent = np.split(keys, [PRELOAD, PRELOAD + ROUNDS * 128])
+    n_fresh = ROUNDS * MAIN_SPEC["n_lanes"] // 4
+    keys = distinct_keys(rng, PRELOAD + n_fresh + n_absent)
+    pre, fresh, absent = np.split(keys, [PRELOAD, PRELOAD + n_fresh])
     pre_vals = rng.integers(0, 2**31 - 1, size=PRELOAD).astype(np.int32)
     oracle = Oracle()
     for k, v in zip(pre.tolist(), pre_vals.tolist()):
         oracle.insert(k, v)
-    plan = traffic(rng, oracle, iter(fresh.tolist()), absent)
-    dev_plan = [tuple(torch.tensor(x, device=dev) for x in (r[0], r[3], r[4],
-                                                             r[5]))
-                for r in plan]
+    plan = traffic(rng, oracle, iter(fresh.tolist()), absent, ROUNDS,
+                   LOOKUPS_PER_ROUND, MAIN_SPEC["n_lanes"])
 
     t = Table.create(spec, device=dev)
-    check(t.plan().backend == "cuda", "main path plan")
-    torch.cuda.synchronize()
-    fused_probe.launches = fused_apply.launches = 0
+    check(t.plan().backend == "cuda" and t.plan().fused_apply
+          and t.plan().fused_lookup, "main path plan")
+    zero_counts()
 
     t0 = time.perf_counter()
     t, res = t.insert(torch.tensor(pre, device=dev),
@@ -329,21 +433,7 @@ def main_path(rng, dev):
     check(bool((res.status == T.TRUE).all()), "preload statuses")
     depth_pre = int(t.depth())
 
-    outs = []
-    t0 = time.perf_counter()
-    for q, kinds, keys_, values in dev_plan:
-        outs.append(t.lookup(q))
-        t, res = t.apply(kinds, keys_, values)
-        outs.append(res.status)
-    torch.cuda.synchronize()
-    t_mix = time.perf_counter() - t0
-
-    for r, (q, found, vals, _, _, _, status) in enumerate(plan):
-        f, v = outs[2 * r]
-        check(np.array_equal(f.cpu().numpy(), found), f"round {r} found")
-        check(np.array_equal(v.cpu().numpy(), vals), f"round {r} values")
-        check(np.array_equal(outs[2 * r + 1].cpu().numpy(), status),
-              f"round {r} statuses")
+    t, t_mix = run_rounds(t, plan, dev)
 
     # FROZEN through freeze_buddies, then one merge of another pair
     snap = T.to_numpy(t.state)
@@ -365,15 +455,15 @@ def main_path(rng, dev):
     f, v = t.lookup(moved)
     check(bool(f.all()) and v.tolist() == [oracle.d[k] for k in moved],
           "merged keys")
-    torch.cuda.synchronize()
-    launches = {"fused_probe": fused_probe.launches,
-                "fused_apply": fused_apply.launches}
+    launches = read_counts()
 
     snap = T.to_numpy(t.state)
     check(not bool(snap["error"]), "error flag")
     check_invariants(cfg, snap)
     check(to_dict(cfg, snap) == oracle.d, "final content")
-    check(all(c > 0 for c in launches.values()), f"launches {launches}")
+    check(launches["fused_probe"] > 0 and launches["fused_apply"] > 0
+          and launches["probe"] == launches["grouped_apply"] == 0,
+          f"launches {launches}")
     n_look = ROUNDS * LOOKUPS_PER_ROUND
     n_write = ROUNDS * MAIN_SPEC["n_lanes"]
     emit({"phase": "main_path", "spec": MAIN_SPEC, "preload_keys": PRELOAD,
@@ -383,30 +473,133 @@ def main_path(rng, dev):
           "depth_after_preload": depth_pre, "depth": int(snap["depth"]),
           "live_buckets": int(snap["live"].sum()), "size": len(oracle.d),
           "launches": launches, "ok": True})
-    return t, launches
+    return t, launches, oracle, absent
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the cuda plan against the plain plan
+# phase 4: the wide path — restore the main table's image into 4,096-lane
+# transactions, then the 90/10 mix at that width
 
 
-def plan_parity(t, rng, dev):
+def kernel_counts():
+    from repro_torch.kernels.apply import fused_apply, grouped_apply
+    from repro_torch.kernels.lookup import fused_probe, probe
+    return {f.__name__: f for f in (fused_probe, fused_apply, probe,
+                                    grouped_apply)}
+
+
+def read_counts():
+    torch.cuda.synchronize()
+    return {name: f.launches for name, f in kernel_counts().items()}
+
+
+def zero_counts():
+    torch.cuda.synchronize()
+    for f in kernel_counts().values():
+        f.launches = 0
+
+
+def wide_path(t_main, oracle: Oracle, absent, rng, dev):
+    from repro_torch.core import table as T
+    from repro_torch.core.invariants import check_invariants, to_dict
+    from repro_torch.core.snapshot import load_image
+    from repro_torch.table_api import Table, TableSpec
+
+    spec = TableSpec(**WIDE_SPEC, backend="cuda")
+    cfg = spec.table_config()
+    plan = spec.plan("cuda")
+    check(plan.backend == "cuda" and not plan.fused_lookup
+          and not plan.fused_apply, f"wide path plan {plan}")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    main_image = t_main.save(str(out_dir / "main.npz"))
+    save_s = time.perf_counter() - t0
+    image = load_image(main_image)
+    check(image.n_items == len(oracle.d), "main image item count")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    tw = Table.restore(main_image, spec, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_launches = read_counts()
+    snap = T.to_numpy(tw.state)
+    check(not bool(snap["error"]), "restored error flag")
+    check_invariants(cfg, snap)
+    check(to_dict(cfg, snap) == oracle.d, "restored content")
+    again = load_image(tw.save(str(out_dir / "wide.npz")))
+    check(again.header == image.header
+          and np.array_equal(again.keys, image.keys)
+          and np.array_equal(again.values, image.values),
+          "re-saved image differs")
+
+    # the 90/10 mix at 4,096 lanes: new keys are neither live nor in the
+    # never-inserted set the lookups and absent deletes draw from
+    fresh = distinct_keys(rng, WIDE_ROUNDS * WIDE_SPEC["n_lanes"] // 2)
+    fresh = fresh[~np.isin(fresh, np.fromiter(oracle.d, np.int32))
+                  & ~np.isin(fresh, absent)]
+    rounds = traffic(rng, oracle, iter(fresh.tolist()), absent, WIDE_ROUNDS,
+                     WIDE_LOOKUPS, WIDE_SPEC["n_lanes"])
+    zero_counts()
+    tw, t_mix = run_rounds(tw, rounds, dev)
+    mixed_launches = read_counts()
+    snap = T.to_numpy(tw.state)
+    check(not bool(snap["error"]), "wide error flag")
+    check_invariants(cfg, snap)
+    check(to_dict(cfg, snap) == oracle.d, "wide final content")
+    for phase, launches in (("restore", restore_launches),
+                            ("mixed", mixed_launches)):
+        check(launches["probe"] + launches["grouped_apply"] > 0
+              and launches["fused_probe"] == launches["fused_apply"] == 0,
+              f"wide {phase} launches {launches}")
+    check(mixed_launches["probe"] > 0 and restore_launches["grouped_apply"]
+          > 0 and mixed_launches["grouped_apply"] > 0, "wide launches")
+    n_look = WIDE_ROUNDS * WIDE_LOOKUPS
+    n_write = WIDE_ROUNDS * WIDE_SPEC["n_lanes"]
+    launches = {k: restore_launches[k] + mixed_launches[k]
+                for k in restore_launches}
+    emit({"phase": "wide_path", "spec": WIDE_SPEC,
+          "plan": {"fused_lookup": plan.fused_lookup,
+                   "fused_apply": plan.fused_apply},
+          "image_items": image.n_items, "save_s": save_s,
+          "restore_s": restore_s,
+          "restore_items_per_s": image.n_items / restore_s,
+          "restore_transactions": tw.seq - WIDE_ROUNDS,
+          "resaved_image_identical": True, "mixed_rounds": WIDE_ROUNDS,
+          "lookups": n_look, "writes": n_write, "mixed_s": t_mix,
+          "mixed_ops_per_s": (n_look + n_write) / t_mix,
+          "depth": int(snap["depth"]), "live_buckets": int(snap["live"].sum()),
+          "size": len(oracle.d), "launches_restore": restore_launches,
+          "launches_mixed": mixed_launches, "ok": True})
+    return tw, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the cuda plan against the plain plan
+
+
+def plan_parity(t, rng, dev, spec_kw, steps, name):
+    """``steps`` transactions and lookups under the ``"cuda"`` and the
+    ``"plain"`` plan from one state: statuses and lookups equal, and the
+    state equal with pool rows compared as sets."""
     from repro_torch.core import table as T
     from repro_torch.table_api import Table, TableSpec
 
     snap = T.to_numpy(t.state)
-    tables = {b: Table.from_state(TableSpec(**MAIN_SPEC, backend=b),
+    tables = {b: Table.from_state(TableSpec(**spec_kw, backend=b),
                                   T.from_numpy_state(snap, dev), t.seq)
               for b in ("cuda", "plain")}
     live = snap["keys"][snap["live"]]
     live = live[live != EMPTY]
+    n = spec_kw["n_lanes"]
     secs = {"cuda": 0.0, "plain": 0.0}
-    for step in range(64):
-        kinds = rng.integers(0, 3, size=512).astype(np.int32)
-        keys = np.where(rng.random(512) < 0.5, rng.choice(live, size=512),
-                        rng.integers(1, 2**31 - 1, size=512)).astype(np.int32)
-        vals = rng.integers(0, 2**31 - 1, size=512).astype(np.int32)
-        q = torch.tensor(np.r_[keys, rng.choice(live, size=512)], device=dev)
+    for step in range(steps):
+        kinds = rng.integers(0, 3, size=n).astype(np.int32)
+        keys = np.where(rng.random(n) < 0.5, rng.choice(live, size=n),
+                        rng.integers(1, 2**31 - 1, size=n)).astype(np.int32)
+        vals = rng.integers(0, 2**31 - 1, size=n).astype(np.int32)
+        q = torch.tensor(np.r_[keys, rng.choice(live, size=n)], device=dev)
         out = {}
         for b, tb in tables.items():
             torch.cuda.synchronize()
@@ -420,7 +613,7 @@ def plan_parity(t, rng, dev):
         for x, y in zip(out["cuda"], out["plain"]):
             check(torch.equal(x, y), f"plan parity step {step}")
     a, b = (T.to_numpy(tables[k].state) for k in ("cuda", "plain"))
-    P = MAIN_SPEC["pool_size"]
+    P = spec_kw["pool_size"]
     for f in a:
         x, y = a[f], b[f]
         if x.ndim and x.shape[0] == P + 1:
@@ -433,13 +626,17 @@ def plan_parity(t, rng, dev):
             x = np.take_along_axis(x, order_x, 1)
             y = np.take_along_axis(y, order_y, 1)
         check(np.array_equal(x, y), f"plan parity state field {f}")
-    emit({"phase": "plan_parity", "transactions": 64,
-          "ms_per_transaction_cuda": secs["cuda"] / 64 * 1e3,
-          "ms_per_transaction_plain": secs["plain"] / 64 * 1e3, "ok": True})
+    plan = tables["cuda"].plan()
+    emit({"phase": "plan_parity", "path": name, "n_lanes": n,
+          "cuda_plan_fused": [plan.fused_lookup, plan.fused_apply],
+          "transactions": steps,
+          "ms_per_transaction_cuda": secs["cuda"] / steps * 1e3,
+          "ms_per_transaction_plain": secs["plain"] / steps * 1e3,
+          "ok": True})
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where a mixed round's time goes
+# phase 6: where a mixed round's time goes
 
 
 def mixed_batches(rng, live, fresh, dev, rounds):
@@ -531,17 +728,17 @@ def profile_rounds(t, rng, dev, rounds=16):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel times at the main path's shapes
+# phase 7: kernel times at the shapes of the path that launches them
 
 
-def apply_bytes_needed(kinds, status, bids, B):
-    """Bytes one ``fused_apply`` launch must move, from its own statuses:
-    per lane the op (12 B), its directory and frozen entries (4 + 1 B), its
-    status and bid (8 B); one key-row read per bucket an op reached (TRUE,
-    FALSE or FULL); a key-row and a value-row write per bucket a TRUE op
-    changed (a fresh insert, or a delete that clears its slot and value);
-    a value-row write per bucket whose only change is a FALSE upsert.
-    Returns (bytes, buckets reached)."""
+def apply_bytes_needed(kinds, status, bids, B, lane_bytes):
+    """Bytes one apply launch must move, from its own statuses: per lane
+    ``lane_bytes`` (its op, status and, for ``fused_apply``, its directory
+    and frozen entries and bid); one key-row read per bucket an op reached
+    (TRUE, FALSE or FULL); a key-row and a value-row write per bucket a
+    TRUE op changed (a fresh insert, or a delete that clears its slot and
+    value); a value-row write per bucket whose only change is a FALSE
+    upsert. Returns (bytes, buckets reached)."""
     from repro_torch.kernels.apply import ST_FALSE, ST_FULL, ST_TRUE
     row = B * 4
 
@@ -553,25 +750,51 @@ def apply_bytes_needed(kinds, status, bids, B):
     key_rows = rows(hit)
     val_rows = rows(hit | ((status == ST_FALSE) & (kinds == 1)))
     n = kinds.shape[0]
-    return (n * (12 + 4 + 1 + 8) + (reached + key_rows + val_rows) * row,
-            reached)
+    return n * lane_bytes + (reached + key_rows + val_rows) * row, reached
 
 
-def kernel_times(t, rng, dev, launches, checks):
+def live_keys(t):
     from repro_torch.core import table as T
+    snap = T.to_numpy(t.state)
+    live = snap["keys"][snap["live"]]
+    return live[live != EMPTY]
+
+
+def half_live(rng, live, n):
+    """``n`` keys, about half of them live: fresh per launch, so that the
+    rows a launch reaches are cold in L2."""
+    return np.where(rng.random(n) < 0.5, rng.choice(live, n),
+                    rng.integers(1, 2**31 - 1, n)).astype(np.int32)
+
+
+def write_ops(rng, live, n, dev, batches=64):
+    """``batches`` write batches of ``n`` inserts and deletes, half on live
+    keys."""
+    return [[torch.tensor(x, device=dev) for x in (
+        rng.integers(1, 3, size=n).astype(np.int32), half_live(rng, live, n),
+        rng.integers(0, 2**31 - 1, n).astype(np.int32))]
+        for _ in range(batches)]
+
+
+def kernel_line(name, replaces, ms, plain, n_bytes, n_ops, launches, checks):
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches[name], "mismatches": checks[name][0],
+            "max_abs_err": checks[name][1], "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def fused_times(t, rng, dev):
+    """``fused_probe`` at 4,608 queries and ``fused_apply`` at 512 lanes on
+    the main table."""
     from repro_torch.kernels.apply import fused_apply, fused_apply_plain
     from repro_torch.kernels.lookup import fused_probe, fused_probe_plain
 
-    cfg = t.config
-    st = t.state
+    cfg, st = t.config, t.state
     B, n, N = cfg.bucket_size, cfg.n_lanes, LOOKUPS_PER_ROUND
-    snap = T.to_numpy(st)
-    live = snap["keys"][snap["live"]]
-    live = live[live != EMPTY]
-    # fresh queries per launch, half hits: the rows are cold in L2
-    qs = [torch.tensor(np.where(rng.random(N) < 0.5, rng.choice(live, N),
-                                rng.integers(1, 2**31 - 1, N)).astype(
-                                    np.int32), device=dev)
+    live = live_keys(t)
+    qs = [torch.tensor(half_live(rng, live, N), device=dev)
           for _ in range(64)]
     pk, pv = st.keys[:-1], st.vals[:-1]
     kw = dict(dmax=cfg.dmax)
@@ -582,52 +805,112 @@ def kernel_times(t, rng, dev, launches, checks):
     hits = sum(int(fused_probe_plain(st.directory, q, pk, pv, **kw)[0].sum())
                for q in qs) / len(qs)
     probe_bytes = N * (4 + 4 + 4 * B + 1 + 4) + hits * 4
-    probe_ops = N * (12 + 2 * B)
 
     # fused_apply on a scratch copy of the main state's pools
-    ops = []
-    for _ in range(64):
-        kinds = rng.integers(1, 3, size=n).astype(np.int32)
-        keys = np.where(rng.random(n) < 0.5, rng.choice(live, n),
-                        rng.integers(1, 2**31 - 1, n)).astype(np.int32)
-        ops.append([torch.tensor(x, device=dev) for x in (
-            kinds, keys, rng.integers(0, 2**31 - 1, n).astype(np.int32))])
+    ops = write_ops(rng, live, n, dev)
     spk, spv = st.keys.clone(), st.vals.clone()
     runs = []
     apply_ms = cuda_ms(lambda i: runs.append((i, fused_apply(
         st.directory, st.frozen, *ops[i % 64], spk, spv, **kw))), 200)
     apply_bytes, buckets = np.mean(
-        [apply_bytes_needed(ops[i % 64][0], out[2], out[3], B)
+        [apply_bytes_needed(ops[i % 64][0], out[2], out[3], B, 12 + 4 + 1 + 8)
          for i, out in runs[2:]], axis=0)
     apply_plain_ms = host_ms(lambda i: fused_apply_plain(
         st.directory, st.frozen, *ops[i % 64], spk, spv, **kw), 20)
-    apply_ops = n * (12 + 4 * B)
+    return ({"fused_probe": (probe_ms, probe_plain_ms, probe_bytes,
+                             N * (12 + 2 * B)),
+             "fused_apply": (apply_ms, apply_plain_ms, apply_bytes,
+                             n * (12 + 4 * B))},
+            {"fused_probe_queries": N, "fused_probe_bytes": probe_bytes,
+             "fused_apply_lanes": n, "fused_apply_bytes": apply_bytes,
+             "fused_apply_buckets": buckets})
 
-    # "replaces": the TPU kernel the JAX package runs at the main path's
-    # geometry. Its fused kernels stop at dmax 17 (and the fused apply at
-    # 2**17 pool rows), so at dmax 20 it routes in XLA and launches the
-    # unfused probe and the grouped apply; below those bounds the two CUDA
-    # kernels stand in for fused_probe (lookup.py:190) and fused_apply
-    # (apply.py:307)
-    out = []
-    for name, src, replaces, ms, plain, nb, no in (
-            ("fused_probe", "src/repro_torch/csrc/fused_probe.cu",
-             "src/repro/kernels/lookup.py:92", probe_ms, probe_plain_ms,
-             probe_bytes, probe_ops),
-            ("fused_apply", "src/repro_torch/csrc/fused_apply.cu",
-             "src/repro/kernels/apply.py:102", apply_ms, apply_plain_ms,
-             apply_bytes, apply_ops)):
-        b_ms, b_by = bound_ms(nb, no)
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": launches[name],
-                    "mismatches": checks[name][0],
-                    "max_abs_err": checks[name][1], "ms": ms,
-                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": None})
-    emit({"phase": "kernel_times", "fused_probe_queries": N,
-          "fused_apply_lanes": n, "probe_bytes": probe_bytes,
-          "apply_bytes": apply_bytes, "apply_buckets": buckets, "ok": True})
-    return out
+
+def unfused_times(tw, rng, dev):
+    """``probe`` at 36,864 queries and ``grouped_apply`` at 4,096 sorted
+    lanes on the wide table, with what the unfused path runs around them
+    (the route in PyTorch; the sort and un-sort) and, for the lookup-route
+    comparison, ``fused_probe`` on the same queries and table."""
+    from repro_torch.core import table as T
+    from repro_torch.kernels.apply import grouped_apply, grouped_apply_plain
+    from repro_torch.kernels.lookup import fused_probe, probe, probe_plain
+
+    cfg, st = tw.config, tw.state
+    B, n, N, P = cfg.bucket_size, cfg.n_lanes, WIDE_LOOKUPS, cfg.pool_size
+    live = live_keys(tw)
+    qs = [torch.tensor(half_live(rng, live, N), device=dev)
+          for _ in range(64)]
+    pk, pv = st.keys[:-1], st.vals[:-1]
+    bids = [T._route(cfg, st.directory, q)[1] for q in qs]
+    route_ms = cuda_ms(lambda i: T._route(cfg, st.directory, qs[i % 64]),
+                       200)
+    probe_ms = cuda_ms(lambda i: probe(bids[i % 64], qs[i % 64], pk, pv), 200)
+    fused_ms = cuda_ms(lambda i: fused_probe(st.directory, qs[i % 64], pk, pv,
+                                             dmax=cfg.dmax), 200)
+    probe_plain_ms = cuda_ms(lambda i: probe_plain(bids[i % 64], qs[i % 64],
+                                                   pk, pv), 20)
+    hits = sum(int(probe_plain(b, q, pk, pv)[0].sum())
+               for b, q in zip(bids, qs)) / len(qs)
+    probe_bytes = N * (4 + 4 + 4 * B + 1 + 4) + hits * 4
+
+    # grouped_apply on a scratch copy of the wide state's pools, with the
+    # ops routed and sorted as kernels/ops.py does it
+    sorted_batches = []
+    for kinds, keys, values in write_ops(rng, live, n, dev):
+        bid = T._route(cfg, st.directory, keys)[1]
+        order = torch.argsort(bid, stable=True)
+        sorted_batches.append([kinds[order], keys[order], values[order],
+                               bid[order]])
+    spk, spv = st.keys.clone(), st.vals.clone()
+    runs = []
+    apply_ms = cuda_ms(lambda i: runs.append((i, grouped_apply(
+        *sorted_batches[i % 64], spk, spv))), 200)
+    apply_bytes, buckets = np.mean(
+        [apply_bytes_needed(sorted_batches[i % 64][0], out[2],
+                            sorted_batches[i % 64][3], B, 16 + 1)
+         for i, out in runs[2:]], axis=0)
+    apply_plain_ms = host_ms(lambda i: grouped_apply_plain(
+        *sorted_batches[i % 64], spk, spv), 20)
+
+    status = torch.zeros(n, dtype=torch.int8, device=dev)
+    raw = [write_ops(rng, live, n, dev, 1)[0] for _ in range(8)]
+    raw_bids = [T._route(cfg, st.directory, k)[1] for _, k, _ in raw]
+    live_mask = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def sort_unsort(i):
+        kinds, keys, values = raw[i % 8]
+        bid = raw_bids[i % 8]
+        order = torch.argsort(torch.where(live_mask, bid, P + 1), stable=True)
+        unsorted = torch.empty_like(status)
+        unsorted[order] = status
+        return kinds[order], keys[order], values[order], bid[order], unsorted
+
+    sort_ms = cuda_ms(sort_unsort, 200)
+    return ({"probe": (probe_ms, probe_plain_ms, probe_bytes, N * 2 * B),
+             "grouped_apply": (apply_ms, apply_plain_ms, apply_bytes,
+                               n * 4 * B)},
+            {"probe_queries": N, "probe_bytes": probe_bytes,
+             "route_torch_ms": route_ms,
+             "routed_lookup_ms": route_ms + probe_ms,
+             "fused_probe_same_queries_ms": fused_ms,
+             "grouped_apply_lanes": n, "grouped_apply_bytes": apply_bytes,
+             "grouped_apply_buckets": buckets, "sort_unsort_ms": sort_ms})
+
+
+# the TPU kernel each CUDA kernel replaces (its jitted function's line)
+REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:190",
+            "fused_apply": "src/repro/kernels/apply.py:307",
+            "probe": "src/repro/kernels/lookup.py:92",
+            "grouped_apply": "src/repro/kernels/apply.py:102"}
+
+
+def kernel_times(t, tw, rng, dev, launches, checks):
+    times, info_main = fused_times(t, rng, dev)
+    wide_times, info_wide = unfused_times(tw, rng, dev)
+    times.update(wide_times)
+    emit({"phase": "kernel_times", **info_main, **info_wide, "ok": True})
+    return [kernel_line(name, REPLACES[name], *times[name], launches, checks)
+            for name in REPLACES]
 
 
 def main() -> int:
@@ -646,10 +929,13 @@ def main() -> int:
     emit({"phase": "build", "build_s": build_s, "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     checks = kernel_checks(rng, dev)
-    t, launches = main_path(rng, dev)
-    plan_parity(t, rng, dev)
+    t, launches, oracle, absent = main_path(rng, dev)
+    tw, wide_launches = wide_path(t, oracle, absent, rng, dev)
+    launches.update({k: wide_launches[k] for k in ("probe", "grouped_apply")})
+    plan_parity(t, rng, dev, MAIN_SPEC, 64, "main")
+    plan_parity(tw, rng, dev, WIDE_SPEC, 16, "wide")
     t = profile_rounds(t, rng, dev)
-    kernels = kernel_times(t, rng, dev, launches, checks)
+    kernels = kernel_times(t, tw, rng, dev, launches, checks)
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

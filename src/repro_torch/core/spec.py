@@ -2,11 +2,13 @@
 
 ``TableSpec`` has the field names of the JAX package's spec
 (``repro/core/spec.py``). This port serves local placement with raw i32
-values and the paper-reactive resize rule; ``placement="sharded"``, a
-``value_schema``, a ``resize_policy`` and measured tile autotuning raise
-``NotImplementedError`` until they are ported. ``backend`` is ``"auto"``,
-``"plain"`` or ``"cuda"`` (see ``kernels/plan.py``); the spec resolves its
-kernel plan once per device type, when the first table on it is built.
+values and the paper-reactive resize rule, and saves and restores tables
+through the JAX package's image format (``core/snapshot.py``);
+``placement="sharded"``, a ``value_schema``, a ``resize_policy`` and
+measured tile autotuning raise ``NotImplementedError`` until they are
+ported. ``backend`` is ``"auto"``, ``"plain"`` or ``"cuda"`` (see
+``kernels/plan.py``); the spec resolves its kernel plan once per device
+type, when the first table on it is built, and every geometry has one.
 """
 from __future__ import annotations
 
@@ -70,8 +72,7 @@ class TableSpec:
     def plan(self, device_type: str):
         """The :class:`~repro_torch.kernels.plan.KernelPlan` for tables on
         ``device_type``: resolved once, when the first table on that device
-        type is built (``Table.create`` / ``from_state``), so a geometry
-        outside the CUDA kernels' bound raises only for a CUDA table."""
+        type is built (``Table.create`` / ``from_state``)."""
         if device_type not in self._plans:
             from repro_torch.kernels.plan import resolve_plan
             self._plans[device_type] = resolve_plan(self, device_type)

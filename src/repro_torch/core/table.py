@@ -197,17 +197,22 @@ def from_numpy_state(d: dict, device=None) -> TableState:
 # rule (A): synchronization-free lookups
 
 
-def probe(directory, queries, pool_keys, pool_vals, *, dmax: int, hash):
-    """Route ``queries`` through ``directory`` (top ``dmax`` bits of
-    ``hash(q)``) and probe their pool rows. Returns (found bool[m], values
-    i32[m], -1 where absent); the first matching slot answers, and the
-    sentinel ``EMPTY_KEY`` never matches."""
-    b = directory[dir_index(hash(queries), dmax)].long()
-    rows_k = pool_keys[b]
-    eq = (rows_k == queries[:, None]) & (queries != EMPTY_KEY)[:, None]
+def probe_rows(bucket_ids, queries, pool_keys, pool_vals):
+    """Probe the pool rows ``bucket_ids`` for ``queries``. Returns (found
+    bool[m], values i32[m], -1 where absent); the first matching slot
+    answers, and the sentinel ``EMPTY_KEY`` never matches."""
+    b = bucket_ids.long()
+    eq = (pool_keys[b] == queries[:, None]) & (queries != EMPTY_KEY)[:, None]
     found = eq.any(dim=-1)
     val = pool_vals[b].gather(1, _first_true(eq)[:, None].long())[:, 0]
     return found, torch.where(found, val, -1)
+
+
+def probe(directory, queries, pool_keys, pool_vals, *, dmax: int, hash):
+    """Route ``queries`` through ``directory`` (top ``dmax`` bits of
+    ``hash(q)``) and probe their pool rows (:func:`probe_rows`)."""
+    return probe_rows(directory[dir_index(hash(queries), dmax)], queries,
+                      pool_keys, pool_vals)
 
 
 def lookup(cfg: TableConfig, state: TableState, queries: torch.Tensor):

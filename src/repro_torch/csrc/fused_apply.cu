@@ -1,13 +1,12 @@
 // fused_apply: the table's whole fast-path write transaction in one launch.
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/apply.py: fused_apply
-// (_fused_apply_kernel) within its bounds (dmax <= 17, pool <= 2**17 rows,
-// n_lanes <= 512), and beyond them the route and sort in XLA plus
-// grouped_apply (_apply_kernel), which is what the JAX package runs at
-// dmax 20. The fused TPU kernel is one program with one serial loop
+// Replaces the Pallas TPU kernel src/repro/kernels/apply.py::fused_apply
+// (_fused_apply_kernel). The TPU kernel is one program with one serial loop
 // over the lanes, hiding HBM latency by double-buffered DMA of each lane's
-// bucket row. Here one thread block of n_lanes threads (n <= 1024) runs the
-// transaction:
+// bucket row, bounded by VMEM to dmax <= 17, 2**17 pool rows and 512 lanes.
+// Here one thread block of n_lanes threads (n <= 1024, B <= 32) runs the
+// transaction at any dmax and pool size; wider transactions take
+// grouped_apply.cu:
 //
 //   phase A   every lane at once: hash, directory route, frozen check,
 //             active mask; ops and bucket ids go to shared memory.
@@ -16,9 +15,10 @@
 //             bucket id, with atomicMin on the group's leader slot.
 //   phase B   each leader walks its group's lanes in lane order with the
 //             bucket row in registers, applies the ops with the running
-//             occupancy (the full test first: ST_FULL even for a delete,
-//             as kernels/ref.py::fused_apply_ref), writes each lane's
-//             status, and writes the row back once, in place. Distinct
+//             occupancy (bucket_row.cuh, the combine step grouped_apply.cu
+//             shares: the full test first, ST_FULL even for a delete, as
+//             kernels/ref.py::fused_apply_ref), writes each lane's status,
+//             and writes the row back once, in place, if it changed. Distinct
 //             buckets proceed in parallel (design rule B); no two leaders
 //             touch the same row, so no row needs a lock.
 //
@@ -29,8 +29,8 @@
 // read once, each changed row written once), well under a microsecond of
 // device-memory time; the launch, the dependent global reads of phase A and
 // the longest group's serial walk in phase B take microseconds. The design
-// keeps the serial
-// part per bucket group, not per batch, and keeps rows in registers.
+// keeps the serial part per bucket group, not per batch, and keeps rows in
+// registers.
 //
 // Contract (kernels/apply.py::fused_apply_plain): statuses TRUE / FALSE /
 // ST_FULL / ST_FROZEN / ST_IDLE per lane, the routed bucket id of every
@@ -40,19 +40,13 @@
 #include <climits>
 #include <cstdint>
 
+#include "bucket_row.cuh"
 #include "hash_route.cuh"
 
 namespace {
 
-using repro_torch::kEmptyKey;
-
-constexpr int kIns = 1;
-constexpr int kDel = 2;
-constexpr int kStIdle = -1;
-constexpr int kStFalse = 0;
-constexpr int kStTrue = 1;
-constexpr int kStFrozen = -2;
-constexpr int kStFull = -3;
+using repro_torch::kStFrozen;
+using repro_torch::kStIdle;
 
 constexpr int kMaxLanes = 1024;   // one thread per lane, one block
 constexpr int kTableBits = 11;    // leader table: 2048 slots >= 2 * lanes
@@ -91,7 +85,7 @@ __global__ void __launch_bounds__(kMaxLanes)
     const int32_t key = keys[i];
     b = repro_torch::route(dir, key, dmax, hash_id, hash_shift);
     bids[i] = b;
-    active = (kind == kIns || kind == kDel) && !frozen[b];
+    active = repro_torch::is_update(kind) && !frozen[b];
     if (!active) status[i] = kind == 0 ? kStIdle : kStFrozen;
     s_kind[i] = kind;
     s_key[i] = key;
@@ -118,61 +112,13 @@ __global__ void __launch_bounds__(kMaxLanes)
   // --- phase B: leaders combine their groups in lane order ---------------
   if (!active || t_lead[group] != i) return;
   const int64_t base = static_cast<int64_t>(b) * B;
-  int32_t rk[kMaxB], rv[kMaxB];
-#pragma unroll
-  for (int s = 0; s < kMaxB; ++s) {
-    if (s < B) {
-      rk[s] = pool_keys[base + s];
-      rv[s] = pool_vals[base + s];
-    }
-  }
+  repro_torch::RegisterRow<kMaxB> row;
+  row.load(pool_keys + base, pool_vals + base, B);
   for (int j = i; j < n; ++j) {
     if (s_group[j] != group) continue;
-    const int32_t key = s_key[j];
-    int occ = 0, slot_eq = -1, slot_free = -1;
-#pragma unroll
-    for (int s = kMaxB - 1; s >= 0; --s) {
-      if (s < B) {
-        occ += rk[s] != kEmptyKey;
-        if (rk[s] == key) slot_eq = s;
-        if (rk[s] == kEmptyKey) slot_free = s;
-      }
-    }
-    const bool exist = slot_eq >= 0;
-    const bool is_ins = s_kind[j] == kIns;
-    int st;
-    if (occ >= B) {
-      st = kStFull;            // full test first: no update on a full row
-    } else if (is_ins) {
-      const int w = exist ? slot_eq : slot_free;
-      const int32_t v = s_val[j];
-#pragma unroll
-      for (int s = 0; s < kMaxB; ++s) {
-        if (s == w) {
-          rk[s] = key;
-          rv[s] = v;
-        }
-      }
-      st = exist ? kStFalse : kStTrue;
-    } else {
-#pragma unroll
-      for (int s = 0; s < kMaxB; ++s) {
-        if (s == slot_eq) {
-          rk[s] = kEmptyKey;
-          rv[s] = 0;
-        }
-      }
-      st = exist ? kStTrue : kStFalse;
-    }
-    status[j] = st;
+    status[j] = repro_torch::apply_op(row, B, s_kind[j], s_key[j], s_val[j]);
   }
-#pragma unroll
-  for (int s = 0; s < kMaxB; ++s) {
-    if (s < B) {
-      pool_keys[base + s] = rk[s];
-      pool_vals[base + s] = rv[s];
-    }
-  }
+  row.store(pool_keys + base, pool_vals + base, B);
 }
 
 }  // namespace

@@ -1,19 +1,17 @@
 // fused_probe: hash -> directory route -> bucket probe, one thread per query.
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/lookup.py: fused_probe
-// (_fused_probe_kernel + _probe_tile) for dmax <= 17, and above that the
-// route in XLA plus the unfused probe (_probe_kernel), which is what the JAX
-// package runs at dmax 20. On the TPU a gather has to be a one-hot
-// contraction on the MXU, with the directory chunked through VMEM, 16-bit
-// halves for fp32 exactness and the dmax <= 17 cap. None of that carries
-// over: here each thread gathers directly, at any dmax.
+// Replaces the Pallas TPU kernel src/repro/kernels/lookup.py::fused_probe
+// (_fused_probe_kernel + _probe_tile). On the TPU a gather has to be a
+// one-hot contraction on the MXU, with the directory chunked through VMEM,
+// 16-bit halves for fp32 exactness and a dmax <= 17 cap. None of that
+// carries over: here each thread gathers directly, at any dmax.
 //
 // What bounds it on the H100: random 32-byte sectors from device memory.
 // Per query the thread reads its directory entry (4 MiB at dmax = 20, which
-// stays in the 50 MB L2), the 8-key row of its bucket (B = 8 int32 = one
-// 32-byte sector, read as two 16-byte loads) and, on a hit, one value.
-// There is no reuse to stage in shared memory, so the design keeps every
-// access a single sector and enough queries in flight to hide latency.
+// stays in the 50 MB L2), the 8-key row of its bucket and, on a hit, one
+// value (row_probe.cuh). There is no reuse to stage in shared memory, so the
+// design keeps every access a single sector and enough queries in flight to
+// hide latency.
 //
 // Contract (kernels/lookup.py::fused_probe_plain): found = any slot of the
 // routed row equals the query, and an EMPTY query never matches; val = the
@@ -23,10 +21,9 @@
 #include <cstdint>
 
 #include "hash_route.cuh"
+#include "row_probe.cuh"
 
 namespace {
-
-using repro_torch::kEmptyKey;
 
 template <bool kRow8>
 __global__ void fused_probe_kernel(const int32_t* __restrict__ dir,
@@ -39,25 +36,10 @@ __global__ void fused_probe_kernel(const int32_t* __restrict__ dir,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int32_t q = queries[i];
-  const int64_t row = static_cast<int64_t>(
-      repro_torch::route(dir, q, dmax, hash_id, hash_shift)) * B;
-  int slot = -1;
-  if (q != kEmptyKey) {
-    if (kRow8) {
-      const int4* r = reinterpret_cast<const int4*>(pool_keys + row);
-      const int4 lo = __ldg(r);
-      const int4 hi = __ldg(r + 1);
-      const int32_t k[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int s = 7; s >= 0; --s)
-        if (k[s] == q) slot = s;
-    } else {
-      for (int s = B - 1; s >= 0; --s)
-        if (__ldg(pool_keys + row + s) == q) slot = s;
-    }
-  }
-  found[i] = slot >= 0;
-  vals[i] = slot >= 0 ? __ldg(pool_vals + row + slot) : -1;
+  repro_torch::probe_row<kRow8>(
+      pool_keys, pool_vals,
+      repro_torch::route(dir, q, dmax, hash_id, hash_shift), B, q, found + i,
+      vals + i);
 }
 
 }  // namespace
@@ -79,9 +61,7 @@ extern "C" int fused_probe_launch(const void* dir, const void* queries,
   const auto* pv = static_cast<const int32_t*>(pool_vals);
   auto* f = static_cast<uint8_t*>(found);
   auto* v = static_cast<int32_t*>(vals);
-  // the 16-byte row loads need 32-byte rows on a 16-byte-aligned base
-  const bool row8 = B == 8 && reinterpret_cast<uintptr_t>(pk) % 16 == 0;
-  if (row8)
+  if (repro_torch::rows_of_eight(pk, B))
     fused_probe_kernel<true><<<blocks, threads, 0, s>>>(
         d, q, pk, pv, f, v, n, B, dmax, hash_id, hash_shift);
   else

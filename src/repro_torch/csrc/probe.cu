@@ -1,0 +1,65 @@
+// probe: bucket probe of pre-routed queries, one thread per query.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/lookup.py::probe
+// (_probe_kernel + _probe_tile), which the JAX package runs beyond its fused
+// probe's bounds. The TPU kernel walks a grid of (query tile, pool chunk)
+// and gathers each query's row by a one-hot MXU contraction over every pool
+// chunk, in 16-bit halves for fp32 exactness; that cost grows with the pool.
+// None of it carries over: here each thread reads its bucket id and gathers
+// its row directly, whatever the pool's size.
+//
+// What bounds it on the H100: random 32-byte sectors from device memory, as
+// in fused_probe.cu, less the directory entry: per query the bucket id, the
+// query, one key row and, on a hit, one value. The row probe is the one
+// fused_probe.cu uses (row_probe.cuh).
+//
+// Contract (kernels/lookup.py::probe_plain): found = any slot of row
+// bucket_ids[i] equals the query, and an EMPTY query never matches; val =
+// the first matching slot's value, -1 on a miss. The Pallas kernel sums the
+// values of the matching slots; the two agree while keys are distinct within
+// a row, which the table guarantees.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "row_probe.cuh"
+
+namespace {
+
+template <bool kRow8>
+__global__ void probe_kernel(const int32_t* __restrict__ bucket_ids,
+                             const int32_t* __restrict__ queries,
+                             const int32_t* __restrict__ pool_keys,
+                             const int32_t* __restrict__ pool_vals,
+                             uint8_t* __restrict__ found,
+                             int32_t* __restrict__ vals, int n, int B) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  repro_torch::probe_row<kRow8>(pool_keys, pool_vals, __ldg(bucket_ids + i),
+                                B, __ldg(queries + i), found + i, vals + i);
+}
+
+}  // namespace
+
+// Pointers are device pointers; every bucket id names a pool row; stream is
+// a cudaStream_t. Returns the cudaError_t of the launch (0 = cudaSuccess).
+extern "C" int probe_launch(const void* bucket_ids, const void* queries,
+                            const void* pool_keys, const void* pool_vals,
+                            void* found, void* vals, int n, int B,
+                            void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 256;
+  const int blocks = (n + threads - 1) / threads;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* b = static_cast<const int32_t*>(bucket_ids);
+  const auto* q = static_cast<const int32_t*>(queries);
+  const auto* pk = static_cast<const int32_t*>(pool_keys);
+  const auto* pv = static_cast<const int32_t*>(pool_vals);
+  auto* f = static_cast<uint8_t*>(found);
+  auto* v = static_cast<int32_t*>(vals);
+  if (repro_torch::rows_of_eight(pk, B))
+    probe_kernel<true><<<blocks, threads, 0, s>>>(b, q, pk, pv, f, v, n, B);
+  else
+    probe_kernel<false><<<blocks, threads, 0, s>>>(b, q, pk, pv, f, v, n, B);
+  return static_cast<int>(cudaGetLastError());
+}

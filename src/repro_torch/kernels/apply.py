@@ -1,13 +1,21 @@
-"""The fused apply kernel: the table's whole fast-path write transaction.
+"""The apply kernels: the fused write transaction and the grouped apply.
 
 ``fused_apply`` launches the hand-written CUDA kernel
 (``csrc/fused_apply.cu``: one thread block per transaction, one leader
 thread per bucket group) for CUDA tensors and runs ``fused_apply_plain``,
 its plain PyTorch version, for CPU tensors. It replaces the Pallas TPU
-kernel ``repro/kernels/apply.py::fused_apply`` and, beyond that kernel's
-bounds (dmax > 17, more than 2**17 pool rows), the XLA route and sort plus
-``grouped_apply``. It has the contract of
-``repro/kernels/ref.py::fused_apply_ref``.
+kernel ``repro/kernels/apply.py::fused_apply``, with the contract of
+``repro/kernels/ref.py::fused_apply_ref``; its bound is its own (one block
+of at most 1024 lanes, rows of at most 32 slots).
+
+``grouped_apply`` launches ``csrc/grouped_apply.cu`` (one thread per run of
+ops on one bucket, as many blocks as the batch needs) for CUDA tensors and
+runs ``grouped_apply_plain`` for CPU tensors. It replaces the Pallas TPU
+kernel ``repro/kernels/apply.py::grouped_apply``, with the contract of
+``repro/kernels/ref.py::apply_ref``, and serves the transactions beyond the
+fused kernel's bound (``kernels/plan.py``). Both kernels share one combine
+step (``csrc/bucket_row.cuh``), as both plain versions share
+``core/table.py::wave_combine``.
 
 Ops never resize here: an op that meets a full bucket reports ``ST_FULL``
 and is left to the split rounds of ``core/table.py::apply_batch`` (the
@@ -37,7 +45,10 @@ ST_FULL = -3
 MAX_LANES = 1024
 MAX_BUCKET_SIZE = 32
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+_GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                     + [ctypes.c_void_p])
 
 
 def fused_apply_supported(n_lanes: int, bucket_size: int) -> bool:
@@ -102,7 +113,8 @@ def fused_apply(directory: torch.Tensor, frozen: torch.Tensor,
                          f"(max {MAX_BUCKET_SIZE})")
     status = torch.empty(n, dtype=torch.int32, device=dev)
     bids = torch.empty(n, dtype=torch.int32, device=dev)
-    launch = _build.load("fused_apply.cu", "fused_apply_launch", _ARGTYPES)
+    launch = _build.load("fused_apply.cu", "fused_apply_launch",
+                         _FUSED_ARGTYPES)
     rc = launch(directory.data_ptr(), frozen.data_ptr(), kinds.data_ptr(),
                 keys.data_ptr(), values.data_ptr(), pool_keys.data_ptr(),
                 pool_vals.data_ptr(), status.data_ptr(), bids.data_ptr(), n,
@@ -114,3 +126,70 @@ def fused_apply(directory: torch.Tensor, frozen: torch.Tensor,
 
 
 fused_apply.launches = 0
+
+
+def grouped_apply_plain(kinds, keys, values, bucket_ids, pool_keys,
+                        pool_vals):
+    """Plain version of the grouped apply, the contract of ``apply_ref``:
+    ops apply in index order. It is the plain transaction's wave loop
+    (``core/table.py::wave_combine``) with no bucket frozen; within a
+    bucket the wave order is index order, and ops on distinct buckets
+    commute, so it needs no sorted input. The trash row takes the idle
+    lanes' writes."""
+    update = (kinds == 1) | (kinds == 2)
+    frozen = torch.zeros(pool_keys.shape[0], dtype=torch.bool,
+                         device=kinds.device)
+    applied, full, _, exist = wave_combine(
+        pool_keys, pool_vals, frozen, bucket_ids, update, kinds, keys,
+        values)
+    status = torch.where(applied, torch.where(kinds == 1, ~exist, exist)
+                         .to(torch.int8), ST_IDLE)
+    status = torch.where(full, ST_FULL, status).to(torch.int8)
+    return pool_keys, pool_vals, status
+
+
+def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
+                  values: torch.Tensor, bucket_ids: torch.Tensor,
+                  pool_keys: torch.Tensor, pool_vals: torch.Tensor):
+    """Combining apply of ops sorted by (bucket, lane), any batch width.
+
+    kinds i32[M] (0 = idle, 1 = insert/upsert, 2 = delete), keys / values
+    i32[M], bucket_ids i32[M] (the pool row of each op, below P); pool_keys
+    / pool_vals the FULL [P+1, B] pools, trash row included, where the JAX
+    kernel takes the [P, B] pools without it. Ops apply as if one by one in
+    index order, the full test first (``ST_FULL`` even for a delete); the
+    kernel ignores freezing, so the caller completes frozen ops. The active
+    ops of one bucket must be consecutive, with no other op between them,
+    as the (bucket, lane) sort with idle lanes last makes them; idle ops
+    may carry any bucket id.
+
+    The pools are updated **in place** and returned: the caller's previous
+    pool tensors (and a ``TableState`` holding them) are consumed. Returns
+    (pool_keys, pool_vals, status i8[M]) with status in {ST_TRUE,
+    ST_FALSE, ST_FULL, ST_IDLE}. The kernel never writes the trash row;
+    the plain version may."""
+    dev = kinds.device
+    m = kinds.shape[0]
+    check_pools(pool_keys, pool_vals, dev)
+    for name, t in (("kinds", kinds), ("keys", keys), ("values", values),
+                    ("bucket_ids", bucket_ids)):
+        check_i32_vector(name, t, dev, m)
+    if dev.type == "cpu":
+        return grouped_apply_plain(kinds, keys, values, bucket_ids,
+                                   pool_keys, pool_vals)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_apply runs on cuda or cpu tensors, not "
+                         f"{dev}")
+    status = torch.empty(m, dtype=torch.int8, device=dev)
+    launch = _build.load("grouped_apply.cu", "grouped_apply_launch",
+                         _GROUPED_ARGTYPES)
+    rc = launch(kinds.data_ptr(), keys.data_ptr(), values.data_ptr(),
+                bucket_ids.data_ptr(), pool_keys.data_ptr(),
+                pool_vals.data_ptr(), status.data_ptr(), m,
+                pool_keys.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "grouped_apply")
+    grouped_apply.launches += 1
+    return pool_keys, pool_vals, status
+
+
+grouped_apply.launches = 0

@@ -1,12 +1,14 @@
 """Table integration of the kernels: the plan-driven lookup and apply.
 
 ``plan_lookup`` / ``plan_apply`` are the facade's dispatch targets. Under a
-``"cuda"`` plan a lookup is one ``fused_probe`` launch and a write
-transaction is one ``fused_apply`` launch plus the bookkeeping around it
-(seq gating, occupancy counts from the kernel's statuses, the frozen /
-replay / NOP status overlays); ops the kernel reports ``ST_FULL`` re-enter
-the plain transaction, which runs the bounded split rounds — the paper's
-fast (ApplyWFOp) / slow (ResizeWF) structure.
+``"cuda"`` plan a lookup is one ``fused_probe`` launch, or a route in
+PyTorch and one ``probe`` launch; a write transaction is one
+``fused_apply`` launch, or a route and a stable (bucket, lane) sort in
+PyTorch around one ``grouped_apply`` launch. The bookkeeping around the
+kernels is shared: seq gating, occupancy counts from the kernel's
+statuses, the frozen / replay / NOP status overlays; ops the kernel
+reports ``ST_FULL`` re-enter the plain transaction, which runs the bounded
+split rounds — the paper's fast (ApplyWFOp) / slow (ResizeWF) structure.
 """
 from __future__ import annotations
 
@@ -19,12 +21,33 @@ from repro_torch.kernels.apply import ST_FROZEN, ST_FULL
 from repro_torch.kernels.plan import KernelPlan
 
 
-def _kernel_lookup_impl(cfg: T.TableConfig, state: T.TableState, queries):
-    """Rule-A lookup through the fused probe (pools without the trash
-    row; the CUDA kernel has no directory-depth bound)."""
-    return klookup.fused_probe(
-        state.directory, queries, state.keys[:-1], state.vals[:-1],
-        dmax=cfg.dmax, hash_name=cfg.hash_name, hash_shift=cfg.hash_shift)
+def _kernel_lookup_impl(cfg: T.TableConfig, state: T.TableState, queries,
+                        fused: bool):
+    """Rule-A lookup through the fused probe, or through the route in
+    PyTorch and the pre-routed probe (pools without the trash row; neither
+    kernel has a directory-depth bound)."""
+    if fused:
+        return klookup.fused_probe(
+            state.directory, queries, state.keys[:-1], state.vals[:-1],
+            dmax=cfg.dmax, hash_name=cfg.hash_name,
+            hash_shift=cfg.hash_shift)
+    _, bid = T._route(cfg, state.directory, queries)
+    return klookup.probe(bid, queries, state.keys[:-1], state.vals[:-1])
+
+
+def _count_applied(cfg, state, ops, status, bid, live, frozen_hit):
+    """Occupancy deltas from a kernel's statuses (TRUE = net ±1 for
+    insert/delete) — no pool recount — and ``applied_seq`` for the ops
+    completed without the slow path."""
+    P = cfg.pool_size
+    applied = live & (status != ST_FULL)
+    hit = applied & (status == T.TRUE)
+    delta = ((hit & (ops.kind == T.INS)).to(torch.int32)
+             - (hit & (ops.kind == T.DEL)).to(torch.int32))
+    state.counts.index_add_(0, torch.where(applied, bid, P).long(), delta)
+    state.counts[P] = 0
+    return state._replace(applied_seq=torch.where(
+        applied | frozen_hit, ops.seq, state.applied_seq))
 
 
 def _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit, replay):
@@ -46,36 +69,52 @@ def _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit, replay):
     return st, T.BatchResult(status=final, error=st.error)
 
 
+def _gate(state: T.TableState, ops: T.OpBatch):
+    """Exactly-once gating: (fresh, replay) lane masks."""
+    fresh = (ops.kind != T.NOP) & (ops.seq > state.applied_seq)
+    return fresh, (ops.kind != T.NOP) & ~fresh
+
+
 def _apply_batch_fused_impl(cfg: T.TableConfig, state: T.TableState,
                             ops: T.OpBatch):
-    """One write transaction through ``fused_apply``. The pools are updated
-    in place: ``state`` is consumed."""
-    P = cfg.pool_size
-    fresh = (ops.kind != T.NOP) & (ops.seq > state.applied_seq)
-    replay = (ops.kind != T.NOP) & ~fresh
+    """One write transaction through ``fused_apply``, which routes and
+    completes frozen-destination ops itself (ST_FROZEN == table.FROZEN).
+    The pools are updated in place: ``state`` is consumed."""
+    fresh, replay = _gate(state, ops)
     kinds = torch.where(fresh, ops.kind, T.NOP).to(torch.int32)
-
     pk, pv, status, bid = kapply.fused_apply(
         state.directory, state.frozen, kinds, ops.key, ops.value,
         state.keys, state.vals, dmax=cfg.dmax, hash_name=cfg.hash_name,
         hash_shift=cfg.hash_shift)
-
-    # the kernel completes frozen-destination ops itself (ST_FROZEN ==
-    # table.FROZEN); occupancy deltas come from its statuses (TRUE = net
-    # ±1 for insert/delete) — no pool recount
     frozen_hit = fresh & (status == ST_FROZEN)
     live = fresh & ~frozen_hit
-    applied = live & (status != ST_FULL)
-    hit = applied & (status == T.TRUE)
-    delta = ((hit & (ops.kind == T.INS)).to(torch.int32)
-             - (hit & (ops.kind == T.DEL)).to(torch.int32))
-    state.counts.index_add_(0, torch.where(applied, bid, P).long(), delta)
-    state.counts[P] = 0
+    st = _count_applied(cfg, state._replace(keys=pk, vals=pv), ops, status,
+                        bid, live, frozen_hit)
+    return _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit,
+                                replay)
 
-    st = state._replace(
-        keys=pk, vals=pv,
-        applied_seq=torch.where(applied | frozen_hit, ops.seq,
-                                state.applied_seq))
+
+def _apply_batch_kernel_impl(cfg: T.TableConfig, state: T.TableState,
+                             ops: T.OpBatch):
+    """One write transaction through ``grouped_apply``: route, complete the
+    frozen-destination ops here (the kernel ignores freezing), sort the
+    live ops by (bucket, lane) — idle lanes last, with their real bucket
+    ids — apply, un-sort the statuses. The pools are updated in place:
+    ``state`` is consumed."""
+    P = cfg.pool_size
+    fresh, replay = _gate(state, ops)
+    _, bid = T._route(cfg, state.directory, ops.key)
+    frozen_hit = fresh & state.frozen[bid.long()]
+    live = fresh & ~frozen_hit
+    kinds = torch.where(live, ops.kind, T.NOP).to(torch.int32)
+    order = torch.argsort(torch.where(live, bid, P + 1), stable=True)
+    pk, pv, status_sorted = kapply.grouped_apply(
+        kinds[order], ops.key[order], ops.value[order], bid[order],
+        state.keys, state.vals)
+    status = torch.empty_like(status_sorted)
+    status[order] = status_sorted
+    st = _count_applied(cfg, state._replace(keys=pk, vals=pv), ops, status,
+                        bid, live, frozen_hit)
     return _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit,
                                 replay)
 
@@ -85,12 +124,15 @@ def plan_lookup(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
     """Rule-A lookup under a resolved plan."""
     if plan.backend == "plain":
         return T.lookup(cfg, state, queries)
-    return _kernel_lookup_impl(cfg, state, queries)
+    return _kernel_lookup_impl(cfg, state, queries, plan.fused_lookup)
 
 
 def plan_apply(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
                ops: T.OpBatch):
-    """Combining transaction under a resolved plan."""
+    """Combining transaction under a resolved plan: the fused kernel where
+    the plan allows, else the grouped kernel."""
     if plan.backend == "plain":
         return T.apply_batch(cfg, state, ops)
-    return _apply_batch_fused_impl(cfg, state, ops)
+    if plan.fused_apply:
+        return _apply_batch_fused_impl(cfg, state, ops)
+    return _apply_batch_kernel_impl(cfg, state, ops)

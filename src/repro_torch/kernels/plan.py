@@ -6,25 +6,27 @@ the hot path:
 
   ``"plain"``  the plain transaction (``core/table.py::apply_batch``) and
                the plain probe (``core/table.py::lookup``);
-  ``"cuda"``   the kernels: ``fused_probe`` for lookups, ``fused_apply``
-               for writes with the ``ST_FULL`` → ``apply_batch`` fallback
-               (``kernels/ops.py``). On CPU tensors each kernel wrapper runs
-               its plain version, so this path also runs on the CPU.
+  ``"cuda"``   the kernels (``kernels/ops.py``). Within the fused apply
+               kernel's bound (one thread block of at most 1024 lanes,
+               bucket rows of at most 32 slots in registers) a write
+               transaction is one ``fused_apply`` launch and a lookup one
+               ``fused_probe`` launch. Beyond it writes route and sort in
+               PyTorch and launch ``grouped_apply``, and lookups route in
+               PyTorch and launch ``probe``: a table whose writes leave the
+               fused kernel routes its lookups the same way, as the JAX
+               package does past its own fused bounds. Ops that meet a full
+               bucket take the ``ST_FULL`` → ``apply_batch`` fallback. On
+               CPU tensors each kernel wrapper runs its plain version, so
+               this path also runs on the CPU.
 
 ``backend="auto"`` resolves to ``"cuda"`` on a CUDA device and to
-``"plain"`` on the CPU. The fused-apply bound is the kernel's own (one
-thread block of at most 1024 lanes, bucket rows of at most 32 slots in
-registers); a geometry outside it has no kernel yet (the grouped apply
-kernel is not ported), so a ``"cuda"`` plan for a CUDA table of that
-geometry raises — it never falls back to the plain transaction. On the CPU
-the wrappers' plain versions have no such bound.
+``"plain"`` on the CPU. Every geometry has a plan.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.kernels.apply import (MAX_BUCKET_SIZE, MAX_LANES,
-                                       fused_apply_supported)
+from repro_torch.kernels.apply import fused_apply_supported
 
 PLAN_BACKENDS = ("plain", "cuda")
 SPEC_BACKENDS = ("auto",) + PLAN_BACKENDS
@@ -34,9 +36,13 @@ DEVICE_TYPES = ("cpu", "cuda")
 @dataclasses.dataclass(frozen=True)
 class KernelPlan:
     """One table's resolved dispatch, as hashable static metadata.
-    ``backend`` is post-resolution ("auto" never survives)."""
+    ``backend`` is post-resolution ("auto" never survives);
+    ``fused_lookup`` / ``fused_apply`` select the fused kernels under
+    ``"cuda"`` (the JAX plan's fields of the same names)."""
 
     backend: str
+    fused_lookup: bool = True
+    fused_apply: bool = True
 
     def __post_init__(self):
         assert self.backend in PLAN_BACKENDS, self.backend
@@ -53,14 +59,9 @@ def resolve_plan(spec, device_type: str) -> KernelPlan:
     backend = spec.backend
     if backend == "auto":
         backend = "cuda" if device_type == "cuda" else "plain"
-    if (backend == "cuda" and device_type == "cuda"
-            and not fused_apply_supported(spec.n_lanes, spec.bucket_size)):
-        raise NotImplementedError(
-            f"n_lanes={spec.n_lanes}, bucket_size={spec.bucket_size} is "
-            f"outside the fused-apply kernel (n_lanes <= {MAX_LANES}, "
-            f"bucket_size <= {MAX_BUCKET_SIZE}); the grouped apply kernel "
-            "that would serve it is not ported yet")
-    return KernelPlan(backend=backend)
+    fused = (backend == "cuda"
+             and fused_apply_supported(spec.n_lanes, spec.bucket_size))
+    return KernelPlan(backend=backend, fused_lookup=fused, fused_apply=fused)
 
 
 __all__ = ["KernelPlan", "resolve_plan", "PLAN_BACKENDS", "SPEC_BACKENDS"]

@@ -5,7 +5,8 @@ behind one wait-free object. :class:`Table` is that object: built from a
 declarative :class:`~repro_torch.core.spec.TableSpec` on one device, with
 the methods
 
-    ``lookup / insert / delete / update / apply / size / depth / merge``
+    ``lookup / insert / delete / update / apply / size / depth / merge /
+    save / restore``
 
 that accept **any batch length** (short batches are NOP-padded, long ones
 run as one ``n_lanes``-wide combining transaction per chunk) and route to
@@ -22,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import snapshot
 from repro_torch.core import table as T
 from repro_torch.core.spec import TableSpec
 from repro_torch.core.table import (DEL, INS, NOP, BatchResult, OpBatch,
@@ -41,13 +43,14 @@ __all__ = [
 
 def _raw_lookup(table: "Table", queries):
     """Rule-A lookup under the table's plan: ``plain`` runs
-    ``table.lookup``, ``cuda`` the fused probe (``kernels/ops.py``)."""
+    ``table.lookup``, ``cuda`` the fused or the pre-routed probe kernel
+    (``kernels/ops.py``)."""
     return kops.plan_lookup(table.plan(), table.config, table.state, queries)
 
 
 def _raw_apply(table: "Table", state, ops: OpBatch):
     """One combining transaction under the table's plan: ``plain`` runs
-    ``table.apply_batch``, ``cuda`` the fused apply kernel."""
+    ``table.apply_batch``, ``cuda`` the fused or the grouped apply kernel."""
     return kops.plan_apply(table.plan(), table.config, state, ops)
 
 
@@ -79,7 +82,7 @@ class Table:
     def create(cls, spec: TableSpec, device=None) -> "Table":
         """An empty table for ``spec`` on ``device`` (default ``"cuda"``)."""
         dev = resolve_device(device)
-        spec.plan(dev.type)         # raises for a geometry it cannot serve
+        spec.plan(dev.type)         # resolves the plan for this device type
         return cls(spec, dev, T.init_table(spec.table_config(), dev), 0)
 
     @classmethod
@@ -191,14 +194,24 @@ class Table:
                                  parent_depth)
         return self._replace(state=st), ok
 
+    # -- durable images (core/snapshot.py) ---------------------------------
+
     def save(self, path: str) -> str:
-        raise NotImplementedError("snapshots are not ported to the PyTorch "
-                                  "package yet")
+        """Serialize to a canonical, layout-independent image file, the
+        JAX package's format: the items in logical-bucket order and the
+        policy counters under a versioned header (host work after one copy
+        of the pools). Returns ``path``."""
+        return snapshot.save_table(self, path)
 
     @classmethod
     def restore(cls, path: str, spec: TableSpec, device=None) -> "Table":
-        raise NotImplementedError("snapshots are not ported to the PyTorch "
-                                  "package yet")
+        """Load an image (saved by either package) into a fresh table built
+        for ``spec`` on ``device`` (default ``"cuda"``). ``spec`` may differ
+        from the spec the image was saved under — another ``dmax``, pool,
+        lane width or backend; the items re-route through the ordinary
+        directory math, reactive splits included. Infeasible targets raise
+        ``ValueError`` before any device work."""
+        return snapshot.restore_table(path, spec, device)
 
     # -- helpers -----------------------------------------------------------
 

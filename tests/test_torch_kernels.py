@@ -4,11 +4,13 @@ the CUDA kernels against their plain versions.
 On the CPU the kernel wrappers run their plain versions, which must equal
 the JAX references exactly (integers, tolerance 0):
 ``fused_probe_plain`` ≡ ``repro.kernels.lookup.fused_probe`` in interpret
-mode, and ``fused_apply_plain`` ≡ ``repro.kernels.ref.fused_apply_ref``
-(the Pallas apply kernel itself cannot run in interpret mode on JAX 0.9,
-which dropped ``pl.load``/``pl.store``). The ``cuda``-marked tests launch the
-CUDA kernels on the card and compare them with the plain versions; they
-skip where there is no card.
+mode, ``probe_plain`` ≡ ``repro.kernels.lookup.probe`` in interpret mode
+and ``ref.probe_ref``, ``fused_apply_plain`` ≡
+``repro.kernels.ref.fused_apply_ref`` and ``grouped_apply_plain`` ≡
+``ref.apply_ref`` (the Pallas apply kernels themselves cannot run in
+interpret mode on JAX 0.9, which dropped ``pl.load``/``pl.store``). The
+``cuda``-marked tests launch the CUDA kernels on the card and compare them
+with the plain versions; they skip where there is no card.
 """
 import numpy as np
 import pytest
@@ -226,6 +228,142 @@ def test_fused_apply_plain_status_space_covered():
         assert (seen == code).any(), f"status {code} never produced"
 
 
+# ---------------------------------------------------------------------------
+# pre-routed probe: plain version ≡ JAX probe (interpret) ≡ probe_ref
+
+
+def routed_case(rng, P, B, N):
+    """Pools with distinct keys per row and pre-routed queries: about half
+    hit their row, the rest miss; no query is ``EMPTY_KEY`` (``probe_ref``
+    would match it to a free slot)."""
+    pk = np.full((P, B), EMPTY_KEY, np.int32)
+    pv = rng.integers(-2**31, 2**31, size=(P, B),
+                      dtype=np.int64).astype(np.int32)
+    for p in range(P):
+        k = rng.choice(np.arange(1, 4 * B * 8), size=B, replace=False)
+        occ = rng.random(B) < 0.7
+        pk[p, occ] = k[occ]
+    bids = rng.integers(0, P, size=N).astype(np.int32)
+    q = rng.integers(1, 4 * B * 8, size=N).astype(np.int32)
+    hit = rng.random(N) < 0.5
+    for i in np.nonzero(hit)[0]:
+        live = pk[bids[i]][pk[bids[i]] != EMPTY_KEY]
+        if live.size:
+            q[i] = rng.choice(live)
+    q[:2] = [2**31 - 1, -2**31 + 1]
+    return bids, q, pk, pv
+
+
+@needs_jax
+@pytest.mark.parametrize("P,B,N", [(16, 4, 64), (100, 8, 300),
+                                   (700, 8, 513), (50, 16, 200)])
+def test_probe_plain_matches_jax_kernel_and_ref(P, B, N):
+    rng = np.random.default_rng(P * 10 + N)
+    bids, q, pk, pv = routed_case(rng, P, B, N)
+    jargs = [jnp.asarray(x) for x in (bids, q, pk, pv)]
+    jf, jv = jlookup.probe(*jargs, interpret=True)
+    rf, rv = kref.probe_ref(*jargs)
+    tf, tv = tlookup.probe(t(bids), t(q), t(pk), t(pv))
+    for f, v in ((jf, jv), (rf, rv)):
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(f))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(v))
+    assert 0 < int(tf.sum()) < N
+    assert tlookup.probe.launches == 0          # CPU tensors: no launch
+
+
+def test_probe_plain_never_finds_empty_query():
+    pk = torch.full((4, 4), EMPTY_KEY, dtype=torch.int32)
+    pv = torch.arange(16, dtype=torch.int32).reshape(4, 4)
+    f, v = tlookup.probe(torch.tensor([0, 3], dtype=torch.int32),
+                         torch.tensor([EMPTY_KEY, 5], dtype=torch.int32),
+                         pk, pv)
+    assert f.tolist() == [False, False] and v.tolist() == [-1, -1]
+
+
+# ---------------------------------------------------------------------------
+# grouped apply: plain version ≡ apply_ref over carried rounds
+
+
+def grouped_ops(rng, m, rows, key_hi, idle_frac=0.2, ins_frac=0.5):
+    """``m`` ops over ``rows`` sorted by (bucket, lane) as the table sorts
+    them: the active ops by bucket, then the idle lanes, which keep real
+    bucket ids (so they collide with live runs)."""
+    kinds = np.where(rng.random(m) < ins_frac, 1, 2).astype(np.int32)
+    kinds[rng.random(m) < idle_frac] = 0
+    bids = rng.choice(rows, size=m).astype(np.int32)
+    keys = rng.integers(1, key_hi, size=m).astype(np.int32)
+    values = rng.integers(0, 1 << 20, size=m).astype(np.int32)
+    order = np.argsort(np.where(kinds != 0, bids, rows.max() + 2),
+                       kind="stable")
+    return [x[order] for x in (kinds, keys, values, bids)]
+
+
+def run_grouped_rounds(rng, P, B, m, *, fill, key_hi, n_rows=None,
+                       rounds=3, idle_frac=0.2, ins_frac=0.5):
+    """Carry [P+1, B] pools through ``rounds`` sorted batches in the port
+    and [P, B] pools through ``apply_ref``: statuses and rows 0..P-1 must
+    match exactly. Returns every round's (statuses, kinds)."""
+    _, _, pk, pv = fused_case(rng, 4, P, B, fill, 0.0)
+    rows = rng.choice(P, size=n_rows or P, replace=False)
+    jpk, jpv = jnp.asarray(pk[:P]), jnp.asarray(pv[:P])
+    tpk, tpv = t(pk), t(pv)
+    seen, kinds = [], []
+    for r in range(rounds):
+        ops = grouped_ops(rng, m, rows, key_hi, idle_frac, ins_frac)
+        kinds.append(ops[0])
+        jpk, jpv, jst = kref.apply_ref(*(jnp.asarray(x) for x in ops),
+                                       jpk, jpv)
+        tpk, tpv, tst = tapply.grouped_apply(*(t(x) for x in ops), tpk, tpv)
+        assert tst.dtype == torch.int8
+        np.testing.assert_array_equal(tst.numpy(), np.asarray(jst),
+                                      err_msg=f"round {r}: status")
+        np.testing.assert_array_equal(tpk.numpy()[:P], np.asarray(jpk),
+                                      err_msg=f"round {r}: pool keys")
+        np.testing.assert_array_equal(tpv.numpy()[:P], np.asarray(jpv),
+                                      err_msg=f"round {r}: pool vals")
+        seen.append(tst.numpy())
+    assert tapply.grouped_apply.launches == 0   # CPU tensors: no launch
+    return np.concatenate(seen), np.concatenate(kinds)
+
+
+@needs_jax
+@pytest.mark.parametrize("P,B,m,fill,n_rows", [
+    (16, 4, 32, 0.5, None),
+    (64, 8, 128, 0.6, 12),     # few rows: long runs per bucket
+    (100, 8, 200, 0.95, None),  # near-full rows → ST_FULL, deletes included
+    (32, 40, 64, 0.9, 8),      # rows wider than the register path
+])
+def test_grouped_apply_plain_matches_apply_ref(P, B, m, fill, n_rows):
+    rng = np.random.default_rng(P + B + m)
+    seen, _ = run_grouped_rounds(rng, P, B, m, fill=fill, key_hi=40,
+                                 n_rows=n_rows)
+    assert (seen == ST_IDLE).any() and (seen == ST_TRUE).any()
+
+
+@needs_jax
+@pytest.mark.parametrize("ins_frac", [0.0, 0.5, 1.0])
+def test_grouped_apply_plain_duplicate_keys(ins_frac):
+    """Few keys on few rows: duplicate keys within a run, and deletes on
+    full rows (``ST_FULL`` even for a delete)."""
+    rng = np.random.default_rng(int(ins_frac * 10) + 3)
+    seen, _ = run_grouped_rounds(rng, 16, 4, 64, fill=0.3, key_hi=10,
+                                 n_rows=4, ins_frac=ins_frac, rounds=2)
+    assert (seen == ST_FALSE).any()
+    assert (seen == ST_TRUE).any() == (ins_frac > 0)
+
+
+@needs_jax
+def test_grouped_apply_plain_status_space_covered():
+    """TRUE, FALSE, FULL and IDLE in one carried stream, with deletes that
+    meet full rows."""
+    rng = np.random.default_rng(8)
+    seen, kinds = run_grouped_rounds(rng, 24, 4, 96, fill=0.5, key_hi=24,
+                                     n_rows=10, rounds=4)
+    for code in (ST_IDLE, ST_FALSE, ST_TRUE, ST_FULL):
+        assert (seen == code).any(), f"status {code} never produced"
+    assert ((kinds == 2) & (seen == ST_FULL)).any()
+
+
 def test_wrappers_reject_bad_arguments():
     directory = torch.zeros(16, dtype=torch.int32)
     pk = torch.full((5, 4), EMPTY_KEY, dtype=torch.int32)
@@ -241,6 +379,12 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError):
         tapply.fused_apply(directory, torch.zeros(5, dtype=torch.bool), q, q,
                            q, pk.t(), pv.t(), dmax=4)
+    with pytest.raises(ValueError):
+        tlookup.probe(q[:2], q, pk, pv)
+    with pytest.raises(TypeError):
+        tapply.grouped_apply(q, q, q, q.long(), pk, pv)
+    with pytest.raises(ValueError):
+        tapply.grouped_apply(q, q, q[:2], q, pk, pv)
 
 
 # ---------------------------------------------------------------------------
@@ -279,3 +423,40 @@ def test_cuda_fused_apply_equals_plain(cuda, dmax, P, B, n, fill):
         assert torch.equal(kst, pst) and torch.equal(kbid, pbid), r
         assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
                                                              ppv[:P]), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,N", [(64, 8, 1000), (700, 4, 333),
+                                   (1 << 14, 8, 1 << 16), (40, 40, 500)])
+def test_cuda_probe_equals_plain(cuda, P, B, N):
+    rng = np.random.default_rng(N + B)
+    args = [t(x, cuda) for x in routed_case(rng, P, B, N)]
+    before = tlookup.probe.launches
+    kf, kv = tlookup.probe(*args)
+    pf, pv_ = tlookup.probe_plain(*args)
+    torch.cuda.synchronize()
+    assert tlookup.probe.launches == before + 1
+    assert torch.equal(kf, pf) and torch.equal(kv, pv_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,B,m,fill,n_rows", [(16, 4, 64, 0.95, 6),
+                                               (100, 8, 4096, 0.6, None),
+                                               (64, 16, 3000, 0.8, 20),
+                                               (32, 40, 500, 0.9, 8)])
+def test_cuda_grouped_apply_equals_plain(cuda, P, B, m, fill, n_rows):
+    rng = np.random.default_rng(m + P)
+    _, _, pk, pv = fused_case(rng, 4, P, B, fill, 0.0)
+    rows = rng.choice(P, size=n_rows or P, replace=False)
+    kpk, kpv, ppk, ppv = (t(x, cuda) for x in (pk, pv, pk, pv))
+    for r in range(3):
+        ops = [t(x, cuda) for x in grouped_ops(rng, m, rows, 60)]
+        before = tapply.grouped_apply.launches
+        _, _, kst = tapply.grouped_apply(*ops, kpk, kpv)
+        _, _, pst = tapply.grouped_apply_plain(*ops, ppk, ppv)
+        torch.cuda.synchronize()
+        assert tapply.grouped_apply.launches == before + 1
+        assert torch.equal(kst, pst), r
+        assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
+                                                             ppv[:P]), r
+        assert torch.equal(kpk[P], t(pk[P], cuda)), r   # trash row untouched

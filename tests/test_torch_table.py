@@ -1,21 +1,26 @@
 """The PyTorch port's combining transaction against the JAX package.
 
-Both of the port's plans run here on the CPU: ``"plain"`` (the plain
-transaction, ``core/table.py::apply_batch``) and ``"cuda"`` (the kernel
-wrapper path of ``kernels/ops.py``, whose kernels run their plain versions
-on CPU tensors). The same seeded op streams — overflow and split batches
-(B=2), duplicate keys, replayed sequence numbers, frozen buckets via
-``freeze_buddies``, and ``merge_buddies`` — go through the port and through
+Every plan of the port runs here on the CPU: ``"plain"`` (the plain
+transaction, ``core/table.py::apply_batch``), ``"cuda"`` (the fused kernel
+path of ``kernels/ops.py``) and ``"grouped"`` (the ``"cuda"`` backend with
+``fused_lookup = fused_apply = False``, the unfused path a wide-lane table
+takes: route and sort around ``grouped_apply``, route then ``probe``); the
+kernels run their plain versions on CPU tensors. The same seeded op
+streams — overflow and split batches (B=2), duplicate keys, replayed
+sequence numbers, frozen buckets via ``freeze_buddies``, and
+``merge_buddies`` — go through the port and through
 ``repro.core.table.apply_batch``:
 
-* statuses are lane-exact and ``to_dict`` content is equal;
+* statuses are lane-exact, lookups equal ``repro.core.table.lookup`` and
+  ``to_dict`` content is equal;
 * under ``"plain"`` every state array except the trash row is equal;
-* under ``"cuda"`` every state array except the trash row equals the JAX
-  package's kernel path (``kernels/ops.py::_apply_batch_fused_impl`` with
-  the ``fused_apply_ref`` oracle in place of the Pallas kernel); against
-  ``apply_batch`` the pool rows agree as sets, because the lane-order
-  combiner and the single fast pass may put a fresh insert in different
-  free slots of the same bucket;
+* under ``"cuda"`` / ``"grouped"`` every state array except the trash row
+  equals the JAX package's fused / grouped kernel path
+  (``kernels/ops.py::_apply_batch_fused_impl`` /
+  ``_apply_batch_kernel_impl`` with the ``fused_apply_ref`` / ``apply_ref``
+  oracle in place of the Pallas kernel); against ``apply_batch`` the pool
+  rows agree as sets, because the lane-order combiner and the single fast
+  pass may put a fresh insert in different free slots of the same bucket;
 * the JAX package's ``check_invariants`` passes on ``to_numpy(state)``.
 """
 from functools import lru_cache, partial
@@ -27,6 +32,7 @@ import pytest
 import torch
 
 from repro.core import table as JT
+from repro.core.hashing import dir_index
 from repro.core.invariants import check_invariants as jax_check_invariants
 from repro.core.invariants import to_dict as jax_to_dict
 from repro.core.reference import SeqExtHash
@@ -98,16 +104,58 @@ def jax_kernel_path(cfg, state, ops):
                                      live, frozen_hit, replay)
 
 
+def jax_grouped_path(cfg, state, ops):
+    """The JAX package's grouped kernel transaction
+    (``kernels/ops.py::_apply_batch_kernel_impl``) with the kernel's oracle
+    ``apply_ref`` in place of the Pallas launch (which JAX 0.9 cannot
+    interpret)."""
+    n = cfg.n_lanes
+    fresh = (ops.kind != JT.NOP) & (ops.seq > state.applied_seq)
+    replay = (ops.kind != JT.NOP) & ~fresh
+    bid = state.directory[dir_index(cfg.hash_fn(ops.key), cfg.dmax)]
+    frozen_hit = fresh & state.frozen[bid]
+    live = fresh & ~frozen_hit
+    kinds = jnp.where(live, ops.kind, 0)
+    order = jnp.argsort(jnp.where(live, bid, jnp.int32(cfg.pool_size + 1)),
+                        stable=True)
+    inv = jnp.zeros(n, jnp.int32).at[order].set(jnp.arange(n,
+                                                           dtype=jnp.int32))
+    pk, pv, status_sorted = kref.apply_ref(
+        kinds[order], ops.key[order], ops.value[order], bid[order],
+        state.keys[:-1], state.vals[:-1])
+    status = status_sorted[inv]
+    applied = live & (status != kref.ST_FULL)
+    hit = applied & (status == jnp.int8(JT.TRUE))
+    delta = (jnp.where(hit & (ops.kind == JT.INS), 1, 0)
+             - jnp.where(hit & (ops.kind == JT.DEL), 1, 0))
+    counts = state.counts.at[
+        jnp.where(applied, bid, jnp.int32(cfg.pool_size))].add(delta)
+    counts = counts.at[cfg.pool_size].set(0)
+    st = state._replace(keys=state.keys.at[:-1].set(pk),
+                        vals=state.vals.at[:-1].set(pv), counts=counts,
+                        applied_seq=jnp.where(applied | frozen_hit, ops.seq,
+                                              state.applied_seq))
+    return jops._finish_kernel_apply(cfg, st, ops, status.astype(jnp.int8),
+                                     live, frozen_hit, replay)
+
+
 @lru_cache(maxsize=None)
 def jax_fns(cfg):
     return {"apply": jax.jit(partial(JT.apply_batch, cfg)),
-            "kernel": jax.jit(partial(jax_kernel_path, cfg)),
+            "cuda": jax.jit(partial(jax_kernel_path, cfg)),
+            "grouped": jax.jit(partial(jax_grouped_path, cfg)),
+            "lookup": jax.jit(partial(JT.lookup, cfg)),
             "freeze": jax.jit(partial(JT.freeze_buddies, cfg)),
             "merge": jax.jit(partial(JT.merge_buddies, cfg))}
 
 
+PLANS = {"plain": KernelPlan("plain"), "cuda": KernelPlan("cuda"),
+         "grouped": KernelPlan("cuda", fused_lookup=False,
+                               fused_apply=False)}
+
+
 def port_apply(backend, cfg, state, ops):
-    return tops.plan_apply(KernelPlan(backend), cfg, state, ops)
+    return tops.plan_apply(PLANS[backend], cfg, state, ops)
 
 
 def check_both_checkers(tcfg, jcfg, ts):
@@ -136,8 +184,9 @@ def drive(backend, cfg_kw, steps, seed, key_hi, replay_every=5,
     fns = jax_fns(jcfg)
     rng = np.random.default_rng(seed)
     js = JT.init_table(jcfg)            # JAX apply_batch
-    jk = JT.init_table(jcfg)            # JAX kernel path
+    jk = JT.init_table(jcfg)            # JAX kernel path of this backend
     ts = TT.init_table(tcfg, "cpu")
+    qrng = np.random.default_rng(seed + 1)
     seen, prev = set(), None
     for step in range(steps):
         if prev is not None and step % replay_every == replay_every - 1:
@@ -158,10 +207,16 @@ def drive(backend, cfg_kw, steps, seed, key_hi, replay_every=5,
                                       err_msg=where)
         assert bool(tr.error) == bool(jr.error), where
         assert to_dict(tcfg, ts) == jax_to_dict(jcfg, js), where
+        q = qrng.integers(1, key_hi, size=2 * n).astype(np.int32)
+        for port_x, jax_x in zip(
+                tops.plan_lookup(PLANS[backend], tcfg, ts, torch.tensor(q)),
+                fns["lookup"](js, jnp.asarray(q))):
+            np.testing.assert_array_equal(port_x.numpy(), np.asarray(jax_x),
+                                          err_msg=where + " lookup")
         if backend == "plain":
             assert_same_state(TT.to_numpy(ts), np_state(js), P, where=where)
         else:
-            jk, kr = fns["kernel"](jk, jo)
+            jk, kr = fns[backend](jk, jo)
             np.testing.assert_array_equal(tr.status.numpy(),
                                           np.asarray(kr.status), err_msg=where)
             assert_same_state(TT.to_numpy(ts), np_state(jk), P, where=where)
@@ -177,15 +232,16 @@ def drive(backend, cfg_kw, steps, seed, key_hi, replay_every=5,
             parent = buddy_parent(snap, rng, P)
             if parent is None:
                 continue
-            refs = [(js, "js")] + ([(jk, "jk")] if backend == "cuda" else [])
+            refs = [(js, "js")] + ([(jk, "jk")] if backend != "plain"
+                                   else [])
             outs = {tag: fns[name](s, *parent) for s, tag in refs}
             ts, tok = getattr(TT, f"{name}_buddies")(tcfg, ts, *parent)
             js, jok = outs["js"]
-            if backend == "cuda":
+            if backend != "plain":
                 jk, _ = outs["jk"]
             assert bool(tok) == bool(jok), f"{where} {name} {parent}"
             assert_same_state(TT.to_numpy(ts), np_state(js), P,
-                              rows_as_sets=backend == "cuda",
+                              rows_as_sets=backend != "plain",
                               where=f"{where} {name}")
             check_both_checkers(tcfg, jcfg, ts)
     return seen
@@ -194,14 +250,14 @@ def drive(backend, cfg_kw, steps, seed, key_hi, replay_every=5,
 BASE = dict(dmax=6, bucket_size=2, pool_size=64, n_lanes=8)
 
 
-@pytest.mark.parametrize("backend", ["plain", "cuda"])
+@pytest.mark.parametrize("backend", ["plain", "cuda", "grouped"])
 def test_overflow_split_stream_b2(backend):
     """B=2: most batches overflow and split; frozen buckets and merges."""
     seen = drive(backend, BASE, steps=30, seed=3, key_hi=120)
     assert {JT.TRUE, JT.FALSE, JT.FROZEN} <= seen
 
 
-@pytest.mark.parametrize("backend", ["plain", "cuda"])
+@pytest.mark.parametrize("backend", ["plain", "cuda", "grouped"])
 def test_wide_lanes_sorted_links(backend):
     """300 lanes cross _PAIRWISE_MAX_LANES: the sorted segmented scans."""
     cfg = dict(dmax=8, bucket_size=4, pool_size=256, n_lanes=300)
@@ -227,7 +283,7 @@ def test_dmax_exhaustion_sets_overflow_and_error():
     js, jr = jax_fns(jcfg)["apply"](
         JT.init_table(jcfg), JT.make_ops(jcfg, JT.init_table(jcfg), kinds,
                                          keys, keys))
-    for backend in ("plain", "cuda"):
+    for backend in PLANS:
         ts = TT.init_table(tcfg, "cpu")
         ts, tr = port_apply(backend, tcfg, ts,
                             TT.make_ops(tcfg, ts, kinds, keys, keys))
@@ -236,7 +292,7 @@ def test_dmax_exhaustion_sets_overflow_and_error():
         assert to_dict(tcfg, ts) == jax_to_dict(jcfg, js)
 
 
-@pytest.mark.parametrize("backend", ["plain", "cuda"])
+@pytest.mark.parametrize("backend", ["plain", "cuda", "grouped"])
 def test_single_op_batches_match_sequential_oracle(backend):
     """One op per transaction must follow SeqExtHash exactly: statuses,
     content and the per-entry (depth, prefix, items) layout."""
@@ -282,7 +338,7 @@ def test_numpy_round_trip_from_jax_state_with_frozen_bucket():
     kinds = np.full(8, JT.INS, np.int32)
     js, jr = jax_fns(jcfg)["apply"](js, JT.make_ops(jcfg, js, kinds, keys,
                                                     keys))
-    for backend in ("plain", "cuda"):
+    for backend in PLANS:
         t2 = TT.from_numpy_state(TT.to_numpy(ts), "cpu")
         t2, tr = port_apply(backend, tcfg, t2,
                             TT.make_ops(tcfg, t2, kinds, keys, keys))

@@ -40,9 +40,22 @@ def same(port_out, jax_out, where):
 
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_facade_matches_jax_facade(backend):
-    n = GEOM["n_lanes"]
-    jt = JaxTable.create(JaxSpec(**GEOM, backend="xla"))
-    t = Table.create(TableSpec(**GEOM, backend=backend), device="cpu")
+    facade_parity(GEOM, backend)
+
+
+def test_unfused_facade_matches_jax_facade():
+    """Rows wider than the fused apply kernel's 32 slots: the ``cuda``
+    plan routes writes through ``grouped_apply`` and lookups through
+    ``probe``, on the same batches as the fused test."""
+    geom = dict(GEOM, bucket_size=40, pool_size=32)
+    plan = facade_parity(geom, "cuda", min_merged=0)   # no pair fits 40
+    assert not plan.fused_apply and not plan.fused_lookup
+
+
+def facade_parity(geom, backend, min_merged=1):
+    n = geom["n_lanes"]
+    jt = JaxTable.create(JaxSpec(**geom, backend="xla"))
+    t = Table.create(TableSpec(**geom, backend=backend), device="cpu")
     assert t.plan().backend == backend
     rng = np.random.default_rng(17)
     for rnd, m in enumerate([0, 1, 12, 3 * n + 5, 12, 1, 3 * n + 5, 0]):
@@ -89,8 +102,9 @@ def test_facade_matches_jax_facade(backend):
         merged += bool(tok)
         assert int(t.depth()) == int(jt.depth())
         assert to_dict(t.config, t.state) == jax_to_dict(jt.config, jt.state)
-    assert merged > 0
+    assert merged >= min_merged
     check_invariants(t.config, t.state)
+    return t.plan()
 
 
 def test_empty_and_single_batches():
@@ -119,20 +133,28 @@ def test_unported_options_raise():
                dict(resize_policy=object()), dict(autotune="measured")):
         with pytest.raises(NotImplementedError):
             TableSpec(**GEOM, **kw)
-    # a geometry outside the fused-apply kernel raises for a CUDA table
-    # only; the CPU tables' plain versions serve it
+    # a geometry outside the fused-apply kernel resolves, on a CUDA table,
+    # to the unfused kernels (grouped_apply, probe); the CPU tables match
+    # the JAX facade
+    geom = dict(dmax=10, bucket_size=8, pool_size=1024, n_lanes=1100,
+                initial_depth=8)
+    keys = np.arange(1, 1201, dtype=np.int32)
+    jt, jres = JaxTable.create(JaxSpec(**geom, backend="xla")).insert(
+        keys, keys * 5)
     for backend in ("auto", "cuda"):
-        wide = TableSpec(dmax=10, bucket_size=8, pool_size=1024,
-                         n_lanes=1100, initial_depth=8, backend=backend)
-        with pytest.raises(NotImplementedError):
-            wide.plan("cuda")
+        wide = TableSpec(**geom, backend=backend)
+        plan = wide.plan("cuda")
+        assert plan.backend == "cuda"
+        assert plan.fused_lookup is plan.fused_apply is False
         t = Table.create(wide, device="cpu")
-        t, res = t.insert(np.arange(1, 1201, dtype=np.int32))
+        t, res = t.insert(keys, keys * 5)
+        same(res.status, jres.status, backend)
         assert bool((res.status == 1).all()) and t.seq == 2
         assert int(t.size()) == 1200
-    t = Table.create(TableSpec(**GEOM), device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.save("unused.npz")
+        assert to_dict(t.config, t.state) == jax_to_dict(jt.config, jt.state)
+        for port_x, jax_x in zip(t.lookup(keys[::7] + 3),
+                                 jt.lookup(keys[::7] + 3)):
+            same(port_x, jax_x, backend + " lookup")
 
 
 def test_numpy_state_round_trip():
