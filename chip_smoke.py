@@ -9,10 +9,12 @@ printing one JSON line:
 1. build: kernel build seconds, the card's name and power limit;
 2. kernels: each kernel against its plain PyTorch version at the shapes of
    the path that launches it — integers, tolerance 0: ``fused_probe`` and
-   ``probe`` (2**20 queries, the latter routed beforehand), ``fused_apply``
-   (512-lane batches, all five statuses) and ``grouped_apply`` (4,096 lanes
-   sorted by (bucket, lane), idle lanes on live buckets), over carried
-   rounds;
+   ``probe`` (2**20 queries, the latter routed beforehand); ``fused_apply``
+   (512-lane batches, all five statuses; every lane on one bucket; 32-slot
+   rows) and ``grouped_apply`` (4,096 lanes sorted by (bucket, lane) and in
+   lane order, idle lanes on live buckets; 3 chunks and 17 lanes whose
+   buckets span the chunk borders; every lane on one bucket), over carried
+   rounds, one line per case, the trash row untouched;
 3. main path at full size through the ``Table`` facade:
    ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
    initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
@@ -32,8 +34,10 @@ printing one JSON line:
 6. where a main-path mixed round's time goes: the slow path's share (host
    timers) and the device's busy time and top kernels (torch.profiler);
 7. kernel times (CUDA events) at each path's shapes beside their plain
-   versions and their bound, with the PyTorch route and sort around the
-   unfused kernels and the fused probe on the wide path's queries.
+   versions and their bound, with the PyTorch route in front of ``probe``,
+   the sort and un-sort ``grouped_apply`` no longer needs, the fused probe
+   on the wide path's queries and the launch floor (a one-element add);
+   each kernel's registers and spills from its ``ptxas -v`` report.
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -161,16 +165,49 @@ def place_keys(pk, pv, keys, rows, limit, rng):
 
 
 def sorted_ops(kinds, keys, values, bids, P):
-    """Ops in the order the table's grouped transaction gives
-    ``grouped_apply``: active ops by (bucket, lane), then the idle lanes in
-    lane order, which keep their real bucket ids."""
+    """Ops in the order the JAX package's grouped transaction gives its
+    kernel: active ops by (bucket, lane), then the idle lanes in lane
+    order, which keep their real bucket ids."""
     order = np.argsort(np.where(kinds != 0, bids, P + 1), kind="stable")
     return [x[order].astype(np.int32) for x in (kinds, keys, values, bids)]
 
 
+def apply_case(kernel, plain, pk, pv, batches, dev):
+    """Carry the [P+1, B] pools ``pk``/``pv`` through ``batches`` in the
+    kernel and in its plain version: outputs and rows 0..P-1 compared
+    exactly after every batch, and the kernel's trash row untouched."""
+    P = pk.shape[0] - 1
+    k_pk, k_pv = torch.tensor(pk, device=dev), torch.tensor(pv, device=dev)
+    p_pk, p_pv = k_pk.clone(), k_pv.clone()
+    mm = err = 0
+    seen = set()
+    for ops in batches:
+        kout = kernel(*ops, k_pk, k_pv)[2:]
+        pout = plain(*ops, p_pk, p_pv)[2:]
+        torch.cuda.synchronize()
+        mm += sum(int((a != b).sum()) for a, b in zip(kout, pout))
+        mm += int((k_pk[:P] != p_pk[:P]).sum() + (k_pv[:P] != p_pv[:P]).sum())
+        err = max(err, int((k_pv[:P].long() - p_pv[:P].long()).abs().max()))
+        seen |= set(kout[0].tolist())
+    trash = bool((k_pk[P].cpu().numpy() == pk[P]).all()
+                 and (k_pv[P].cpu().numpy() == pv[P]).all())
+    out = {"lanes": int(batches[0][0].shape[0]), "rounds": len(batches),
+           "B": int(pk.shape[1]), "statuses": sorted(seen),
+           "mismatches": mm, "max_abs_err": err,
+           "trash_row_untouched": trash}
+    if len(batches[0]) == 4:        # grouped_apply: ops carry bucket ids
+        collide = 0
+        for kinds, _, _, bids in batches:
+            live = torch.unique(bids[kinds != 0])
+            collide += int(torch.isin(bids[kinds == 0], live).sum())
+        out["idle_lanes_on_live_buckets"] = collide
+    return out
+
+
 def kernel_checks(rng, dev):
-    from repro_torch.kernels.apply import (ST_FALSE, ST_FROZEN, ST_FULL,
-                                           ST_IDLE, ST_TRUE, fused_apply,
+    from repro_torch.kernels.apply import (GROUPED_CHUNK, ST_FALSE,
+                                           ST_FROZEN, ST_FULL, ST_IDLE,
+                                           ST_TRUE, fused_apply,
                                            fused_apply_plain, grouped_apply,
                                            grouped_apply_plain)
     from repro_torch.kernels.lookup import (fused_probe, fused_probe_plain,
@@ -221,9 +258,10 @@ def kernel_checks(rng, dev):
     check(routed_mm == 0, f"probe disagrees with its plain version in "
           f"{routed_mm} outputs")
 
-    # fused_apply: 512-lane batches over hot rows of mixed fill, a frozen
-    # mask, carried over rounds
-    n = MAIN_SPEC["n_lanes"]
+    # the apply kernels: 512-lane (fused_apply) and 4,096-lane
+    # (grouped_apply) batches over hot rows of mixed fill, carried over
+    # rounds, each case against the plain version from the same pools
+    n, m = MAIN_SPEC["n_lanes"], WIDE_SPEC["n_lanes"]
     hot = distinct_keys(np.random.default_rng(rng.integers(2**31)), 4096)
     hot_rows = route_np(hot, directory, dmax)
     apk, apv = pk.copy(), pv.copy()
@@ -234,71 +272,107 @@ def kernel_checks(rng, dev):
                rng)
     frozen = np.zeros(P + 1, bool)
     frozen[hot_rows[rng.random(hot.size) < 0.08]] = True
+    # one hot bucket: an emptied row that every lane reaches, six keys
+    # (fewer than its slots, so it never fills and order decides)
+    r_hot = int(hot_rows[0])
+    apk[r_hot], frozen[r_hot] = EMPTY, False
+    few = hot[:6]
     fr_t = torch.tensor(frozen, device=dev)
-    k_pk, k_pv = torch.tensor(apk, device=dev), torch.tensor(apv, device=dev)
-    p_pk, p_pv = k_pk.clone(), k_pv.clone()
-    seen = set()
-    apply_mm = apply_err = 0
-    for rnd in range(6):
-        kinds = rng.integers(0, 3, size=n).astype(np.int32)
-        ops = [torch.tensor(x, device=dev) for x in (
-            kinds, rng.choice(hot, size=n).astype(np.int32),
-            rng.integers(0, 2**31 - 1, size=n).astype(np.int32))]
-        _, _, ks, kb = fused_apply(d_t, fr_t, *ops, k_pk, k_pv, dmax=dmax)
-        _, _, ps, pb = fused_apply_plain(d_t, fr_t, *ops, p_pk, p_pv,
-                                         dmax=dmax)
-        torch.cuda.synchronize()
-        mm = int((ks != ps).sum() + (kb != pb).sum()
-                 + (k_pk[:P] != p_pk[:P]).sum() + (k_pv[:P] != p_pv[:P]).sum())
-        apply_mm += mm
-        apply_err = max(apply_err, int((k_pv[:P].long()
-                                        - p_pv[:P].long()).abs().max()))
-        seen |= set(ks.tolist())
-    check(apply_mm == 0, f"fused_apply disagrees with its plain version in "
-          f"{apply_mm} outputs")
+
+    def fused_on(d):
+        return lambda *a: fused_apply(d, fr_t, *a, dmax=dmax)
+
+    def fused_plain_on(d):
+        return lambda *a: fused_apply_plain(d, fr_t, *a, dmax=dmax)
+
+    def ops(width, keys):
+        return [rng.integers(0, 3, size=width), keys,
+                rng.integers(0, 2**31 - 1, size=width)]
+
+    def routed(width, keys):
+        return ops(width, keys) + [route_np(keys, directory, dmax)]
+
+    # fused_apply with 32-slot rows: 2**16 rows, all live at depth 16,
+    # about 20 keys a row (some rows full); half the ops on live keys
+    P32 = 1 << 16
+    dir32 = rng.permutation(P32).astype(np.int32)[np.arange(1 << dmax)
+                                                  >> (dmax - 16)]
+    d32 = torch.tensor(dir32, device=dev)
+    pk32 = np.full((P32 + 1, 32), EMPTY, np.int32)
+    pv32 = np.zeros((P32 + 1, 32), np.int32)
+    k32 = distinct_keys(rng, 20 * P32)
+    place_keys(pk32, pv32, k32, route_np(k32, dir32, dmax), 32, rng)
+    fr32 = torch.zeros(P32 + 1, dtype=torch.bool, device=dev)
+
+    d_hot = torch.full_like(d_t, r_hot)
+    wide = 3 * GROUPED_CHUNK + 17
+    grouped = (grouped_apply, grouped_apply_plain, apk, apv)
+    cases = {
+        "fused_apply": {
+            "main": (fused_on(d_t), fused_plain_on(d_t), apk, apv, 6,
+                     lambda: ops(n, rng.choice(hot, size=n))),
+            "one_bucket": (fused_on(d_hot), fused_plain_on(d_hot), apk, apv,
+                           3, lambda: ops(n, rng.choice(few, size=n))),
+            "b32": (lambda *a: fused_apply(d32, fr32, *a, dmax=dmax),
+                    lambda *a: fused_apply_plain(d32, fr32, *a, dmax=dmax),
+                    pk32, pv32, 4,
+                    lambda: ops(n, half_live(rng, k32[:4096], n)))},
+        "grouped_apply": {
+            # the (bucket, lane) order the JAX package gives its kernel,
+            # a quarter of the hot keys so that runs are long and rows
+            # fill up; idle lanes keep real bucket ids
+            "sorted": (*grouped, 6, lambda: sorted_ops(
+                *routed(m, rng.choice(hot[:1024], size=m)), P)),
+            # lane order, as kernels/ops.py hands the ops over
+            "lane_order": (*grouped, 6, lambda: routed(
+                m, rng.choice(hot[:1024], size=m))),
+            # 256 keys over 3 chunks and 17 lanes: every bucket's ops span
+            # the chunk borders
+            "chunk_spanning": (*grouped, 3, lambda: routed(
+                wide, rng.choice(hot[:256], size=wide))),
+            "one_bucket": (*grouped, 2, lambda: ops(
+                m + 17, rng.choice(few, size=m + 17))
+                + [np.full(m + 17, r_hot)])}}
+    results = {k: {} for k in cases}
+    for kernel, kcases in cases.items():
+        for case, (fn, plain, pk0, pv0, rounds, make) in kcases.items():
+            res = apply_case(fn, plain, pk0, pv0, [
+                [torch.tensor(np.asarray(x).astype(np.int32), device=dev)
+                 for x in make()] for _ in range(rounds)], dev)
+            results[kernel][case] = res
+            emit({"phase": "kernel_case", "kernel": kernel, "case": case,
+                  **res})
+    for kernel, kres in results.items():
+        for case, res in kres.items():
+            check(res["mismatches"] == 0, f"{kernel} {case}: disagrees with "
+                  f"its plain version in {res['mismatches']} outputs")
+            check(res["trash_row_untouched"], f"{kernel} {case}: wrote the "
+                  f"trash row")
+    seen = set(results["fused_apply"]["main"]["statuses"])
     want = {ST_TRUE, ST_FALSE, ST_FULL, ST_FROZEN, ST_IDLE}
     check(want <= seen, f"statuses covered: {sorted(seen)}")
-
-    # grouped_apply: 4,096-lane batches sorted by (bucket, lane) over the
-    # same mixed fill, a quarter of the hot keys so that runs are long and
-    # rows fill up; idle lanes keep real bucket ids that collide with runs
-    m = WIDE_SPEC["n_lanes"]
-    k_pk, k_pv = torch.tensor(apk, device=dev), torch.tensor(apv, device=dev)
-    p_pk, p_pv = k_pk.clone(), k_pv.clone()
-    g_seen, g_mm, g_err, collide = set(), 0, 0, 0
-    for rnd in range(6):
-        kinds = rng.integers(0, 3, size=m)
-        keys = rng.choice(hot[:1024], size=m)
-        ops_np = sorted_ops(kinds, keys, rng.integers(0, 2**31 - 1, size=m),
-                            route_np(keys, directory, dmax), P)
-        live_rows = set(ops_np[3][ops_np[0] != 0].tolist())
-        collide += sum(r in live_rows for r in ops_np[3][ops_np[0] == 0])
-        ops = [torch.tensor(x, device=dev) for x in ops_np]
-        _, _, ks = grouped_apply(*ops, k_pk, k_pv)
-        _, _, ps = grouped_apply_plain(*ops, p_pk, p_pv)
-        torch.cuda.synchronize()
-        g_mm += int((ks != ps).sum() + (k_pk[:P] != p_pk[:P]).sum()
-                    + (k_pv[:P] != p_pv[:P]).sum())
-        g_err = max(g_err, int((k_pv[:P].long() - p_pv[:P].long())
-                               .abs().max()))
-        g_seen |= set(ks.tolist())
-    check(g_mm == 0, f"grouped_apply disagrees with its plain version in "
-          f"{g_mm} outputs")
-    check(bool((k_pk[P] == torch.tensor(apk[P], device=dev)).all()),
-          "grouped_apply wrote the trash row")
+    g_seen = set(results["grouped_apply"]["sorted"]["statuses"])
     want = {ST_TRUE, ST_FALSE, ST_FULL, ST_IDLE}
     check(want <= g_seen, f"grouped statuses covered: {sorted(g_seen)}")
-    check(collide > 0, "no idle lane collides with a live run")
+    for case in ("sorted", "lane_order"):
+        check(results["grouped_apply"][case]["idle_lanes_on_live_buckets"]
+              > 0, f"grouped_apply {case}: no idle lane on a live bucket")
+    for kernel in results:
+        hot_st = set(results[kernel]["one_bucket"]["statuses"])
+        check({ST_TRUE, ST_FALSE} <= hot_st and ST_FULL not in hot_st,
+              f"{kernel} one-bucket statuses {sorted(hot_st)}")
+    apply_mm = sum(r["mismatches"] for r in results["fused_apply"].values())
+    apply_err = max(r["max_abs_err"] for r in results["fused_apply"].values())
+    g_mm = sum(r["mismatches"] for r in results["grouped_apply"].values())
+    g_err = max(r["max_abs_err"] for r in results["grouped_apply"].values())
     emit({"phase": "kernels", "fused_probe": {
         "queries": n_q, "found": int(kf.sum()), "mismatches": probe_mm,
         "max_abs_err": probe_err}, "probe": {
         "queries": n_q, "found": int(rf.sum()), "mismatches": routed_mm,
         "max_abs_err": routed_err}, "fused_apply": {
-        "lanes": n, "rounds": 6, "statuses": sorted(seen),
-        "mismatches": apply_mm, "max_abs_err": apply_err},
-        "grouped_apply": {
-        "lanes": m, "rounds": 6, "statuses": sorted(g_seen),
-        "idle_lanes_on_live_buckets": collide, "mismatches": g_mm,
+        "cases": sorted(results["fused_apply"]), "mismatches": apply_mm,
+        "max_abs_err": apply_err}, "grouped_apply": {
+        "cases": sorted(results["grouped_apply"]), "mismatches": g_mm,
         "max_abs_err": g_err}, "ok": True})
     return {"fused_probe": (probe_mm, probe_err),
             "fused_apply": (apply_mm, apply_err),
@@ -827,10 +901,11 @@ def fused_times(t, rng, dev):
 
 
 def unfused_times(tw, rng, dev):
-    """``probe`` at 36,864 queries and ``grouped_apply`` at 4,096 sorted
-    lanes on the wide table, with what the unfused path runs around them
-    (the route in PyTorch; the sort and un-sort) and, for the lookup-route
-    comparison, ``fused_probe`` on the same queries and table."""
+    """``probe`` at 36,864 queries and ``grouped_apply`` at 4,096 lanes in
+    lane order on the wide table, with the route in PyTorch that the
+    unfused path runs in front of them, the sort and un-sort it ran before
+    and, for the lookup-route comparison, ``fused_probe`` on the same
+    queries and table."""
     from repro_torch.core import table as T
     from repro_torch.kernels.apply import grouped_apply, grouped_apply_plain
     from repro_torch.kernels.lookup import fused_probe, probe, probe_plain
@@ -854,23 +929,19 @@ def unfused_times(tw, rng, dev):
     probe_bytes = N * (4 + 4 + 4 * B + 1 + 4) + hits * 4
 
     # grouped_apply on a scratch copy of the wide state's pools, with the
-    # ops routed and sorted as kernels/ops.py does it
-    sorted_batches = []
-    for kinds, keys, values in write_ops(rng, live, n, dev):
-        bid = T._route(cfg, st.directory, keys)[1]
-        order = torch.argsort(bid, stable=True)
-        sorted_batches.append([kinds[order], keys[order], values[order],
-                               bid[order]])
+    # ops routed as kernels/ops.py does it and left in lane order
+    batches = [[kinds, keys, values, T._route(cfg, st.directory, keys)[1]]
+               for kinds, keys, values in write_ops(rng, live, n, dev)]
     spk, spv = st.keys.clone(), st.vals.clone()
     runs = []
     apply_ms = cuda_ms(lambda i: runs.append((i, grouped_apply(
-        *sorted_batches[i % 64], spk, spv))), 200)
+        *batches[i % 64], spk, spv))), 200)
     apply_bytes, buckets = np.mean(
-        [apply_bytes_needed(sorted_batches[i % 64][0], out[2],
-                            sorted_batches[i % 64][3], B, 16 + 1)
+        [apply_bytes_needed(batches[i % 64][0], out[2], batches[i % 64][3],
+                            B, 16 + 1)
          for i, out in runs[2:]], axis=0)
     apply_plain_ms = host_ms(lambda i: grouped_apply_plain(
-        *sorted_batches[i % 64], spk, spv), 20)
+        *batches[i % 64], spk, spv), 20)
 
     status = torch.zeros(n, dtype=torch.int8, device=dev)
     raw = [write_ops(rng, live, n, dev, 1)[0] for _ in range(8)]
@@ -885,6 +956,9 @@ def unfused_times(tw, rng, dev):
         unsorted[order] = status
         return kinds[order], keys[order], values[order], bid[order], unsorted
 
+    # the stable sort and un-sort kernels/ops.py ran around grouped_apply
+    # before the kernel grouped its ops itself: the yardstick of what the
+    # kernel's grouping took away
     sort_ms = cuda_ms(sort_unsort, 200)
     return ({"probe": (probe_ms, probe_plain_ms, probe_bytes, N * 2 * B),
              "grouped_apply": (apply_ms, apply_plain_ms, apply_bytes,
@@ -904,13 +978,61 @@ REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:190",
             "grouped_apply": "src/repro/kernels/apply.py:102"}
 
 
+def ptxas_report():
+    """Registers and spills of every kernel entry, from the ``ptxas -v``
+    report the build keeps beside each library."""
+    import re
+
+    from repro_torch.kernels import _build
+    out = {}
+    for name in REPLACES:
+        log = (_build.build_dir() / f"{name}.log").read_text()
+        entries, cur = [], None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = {"entry": m.group(1)}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)), spill_stores=int(
+                    m.group(2)), spill_loads=int(m.group(3)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+                entries.append(cur)
+                cur = None
+        check(entries, f"no ptxas report in {name}.log")
+        out[name] = entries
+    return out
+
+
+def launch_floor_ms():
+    """The device time of the cheapest launch: a one-element in-place add,
+    timed with the kernels' harness."""
+    x = torch.zeros(1, device="cuda")
+    return cuda_ms(lambda i: x.add_(1), 200)
+
+
 def kernel_times(t, tw, rng, dev, launches, checks):
     times, info_main = fused_times(t, rng, dev)
     wide_times, info_wide = unfused_times(tw, rng, dev)
     times.update(wide_times)
-    emit({"phase": "kernel_times", **info_main, **info_wide, "ok": True})
-    return [kernel_line(name, REPLACES[name], *times[name], launches, checks)
-            for name in REPLACES]
+    ptxas = ptxas_report()
+    emit({"phase": "ptxas", "kernels": ptxas})
+    for name in ("fused_apply", "grouped_apply"):
+        spills = [e for e in ptxas[name]
+                  if e["spill_stores"] or e["spill_loads"]]
+        check(not spills, f"{name} spills: {spills}")
+    emit({"phase": "kernel_times", **info_main, **info_wide,
+          "launch_floor_ms": launch_floor_ms(), "ok": True})
+    lines = [kernel_line(name, REPLACES[name], *times[name], launches,
+                         checks) for name in REPLACES]
+    for line in lines:
+        line["registers"] = [e["registers"] for e in ptxas[line["name"]]]
+    return lines
 
 
 def main() -> int:

@@ -28,22 +28,37 @@ __device__ __forceinline__ bool is_update(int32_t kind) {
   return kind == kIns || kind == kDel;
 }
 
-// A row of B <= kMaxB slots in registers: every loop is unrolled over kMaxB
-// with a compile-time index, so the arrays never spill to local memory.
-// store() writes back only the halves that changed.
+// A row of B <= kMaxB slots whose keys sit in registers: every loop is
+// unrolled over kMaxB with a compile-time index, so the arrays never spill
+// to local memory. The combine step reads keys only (a value is written,
+// never read), so load() reads the key half alone, in 16-byte loads where
+// the row allows, and store() writes back, once, only the slots that
+// changed: the grouping core's run owners all gather their rows from one
+// SM at once, so the fewer and wider a row's accesses, the sooner the
+// block's rows are in.
 template <int kMaxB>
 struct RegisterRow {
   int32_t k[kMaxB], v[kMaxB];
-  bool keys_dirty, vals_dirty;
+  uint32_t keys_dirty, vals_dirty;  // one bit per slot
 
-  __device__ __forceinline__ void load(const int32_t* pk, const int32_t* pv,
+  __device__ __forceinline__ void load(const int32_t* pk, const int32_t*,
                                        int B) {
-    keys_dirty = vals_dirty = false;
+    keys_dirty = vals_dirty = 0;
+    if (B % 4 == 0 && reinterpret_cast<uintptr_t>(pk) % 16 == 0) {
 #pragma unroll
-    for (int s = 0; s < kMaxB; ++s) {
-      if (s < B) {
-        k[s] = pk[s];
-        v[s] = pv[s];
+      for (int c = 0; c < kMaxB / 4; ++c) {
+        if (4 * c < B) {
+          const int4 q = *reinterpret_cast<const int4*>(pk + 4 * c);
+          k[4 * c] = q.x;
+          k[4 * c + 1] = q.y;
+          k[4 * c + 2] = q.z;
+          k[4 * c + 3] = q.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < kMaxB; ++s) {
+        if (s < B) k[s] = pk[s];
       }
     }
   }
@@ -72,18 +87,16 @@ struct RegisterRow {
         v[s] = val;
       }
     }
-    keys_dirty |= key_changes;
-    vals_dirty = true;
+    if (key_changes) keys_dirty |= 1u << w;
+    vals_dirty |= 1u << w;
   }
 
   __device__ __forceinline__ void store(int32_t* pk, int32_t* pv,
-                                        int B) const {
+                                        int) const {
 #pragma unroll
     for (int s = 0; s < kMaxB; ++s) {
-      if (s < B) {
-        if (keys_dirty) pk[s] = k[s];
-        if (vals_dirty) pv[s] = v[s];
-      }
+      if (keys_dirty >> s & 1) pk[s] = k[s];
+      if (vals_dirty >> s & 1) pv[s] = v[s];
     }
   }
 };

@@ -4,56 +4,66 @@
 // (_fused_apply_kernel). The TPU kernel is one program with one serial loop
 // over the lanes, hiding HBM latency by double-buffered DMA of each lane's
 // bucket row, bounded by VMEM to dmax <= 17, 2**17 pool rows and 512 lanes.
-// Here one thread block of n_lanes threads (n <= 1024, B <= 32) runs the
-// transaction at any dmax and pool size; wider transactions take
-// grouped_apply.cu:
+// Here one thread block of 512 threads runs a transaction of n <= 1024
+// lanes (one 1,024-lane chunk of the grouping core, two lanes a thread) at
+// any dmax and pool size, with rows of B <= 32 slots; wider transactions
+// take grouped_apply.cu:
 //
-//   phase A   every lane at once: hash, directory route, frozen check,
-//             active mask; ops and bucket ids go to shared memory.
-//   phase A2  each active lane finds its bucket group's first lane (its
-//             leader) through a shared open-addressing table keyed by
-//             bucket id, with atomicMin on the group's leader slot.
-//   phase B   each leader walks its group's lanes in lane order with the
-//             bucket row in registers, applies the ops with the running
-//             occupancy (bucket_row.cuh, the combine step grouped_apply.cu
-//             shares: the full test first, ST_FULL even for a delete, as
-//             kernels/ref.py::fused_apply_ref), writes each lane's status,
-//             and writes the row back once, in place, if it changed. Distinct
-//             buckets proceed in parallel (design rule B); no two leaders
-//             touch the same row, so no row needs a lock.
+//   phase A   every lane at once: hash, directory route, frozen check;
+//             idle and frozen lanes get their status here, active lanes'
+//             ops and bucket ids go to shared memory, and each bucket gets
+//             a slot of a leader table (lane_groups.cuh), the lane's
+//             12-bit group key.
+//   phase B   the grouping core (lane_groups.cuh, shared with
+//             grouped_apply.cu): a stable block radix sort of the lanes on
+//             their group keys, 3 passes, then the first lane of each
+//             bucket's run applies the run's ops in lane order with the
+//             row's keys in registers (bucket_row.cuh: the full test first,
+//             ST_FULL even for a delete, as kernels/ref.py::fused_apply_ref)
+//             and writes the row's changed slots back once, in place.
+//             Distinct buckets proceed in parallel (design rule B); no two
+//             run owners touch the same row, so no row needs a lock.
 //
 // The trash row (pool row P) is never written.
 //
 // What bounds it on the H100: latency, not bandwidth. A 512-lane batch
 // must move a few tens of KB (ops, directory entries, each reached key row
 // read once, each changed row written once), well under a microsecond of
-// device-memory time; the launch, the dependent global reads of phase A and
-// the longest group's serial walk in phase B take microseconds. The design
-// keeps the serial part per bucket group, not per batch, and keeps rows in
-// registers.
+// device-memory time; the launch, the dependent global reads of phase A,
+// the sort's barriers and a run's row read take microseconds. The design
+// keeps the serial part per bucket run (almost always one op), with no
+// per-lane scan of the lane array, and keeps a row's keys in registers: at
+// 512 threads a thread may hold 128 registers, so the 32-slot row does not
+// spill.
 //
 // Contract (kernels/apply.py::fused_apply_plain): statuses TRUE / FALSE /
 // ST_FULL / ST_FROZEN / ST_IDLE per lane, the routed bucket id of every
 // lane, and the pools updated as if the lanes ran one by one in lane order.
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 #include "bucket_row.cuh"
 #include "hash_route.cuh"
+#include "lane_groups.cuh"
 
 namespace {
 
 using repro_torch::kStFrozen;
 using repro_torch::kStIdle;
 
-constexpr int kMaxLanes = 1024;   // one thread per lane, one block
-constexpr int kTableBits = 11;    // leader table: 2048 slots >= 2 * lanes
-constexpr int kTable = 1 << kTableBits;
+constexpr int kThreads = 512;
+constexpr int kItems = 2;  // lanes a thread: one 1,024-lane chunk
+using Groups = repro_torch::LaneGroups<kThreads, kItems>;
+using Table = repro_torch::LeaderTable<Groups::kChunk>;
+
+struct Shared {
+  Groups::Shared groups;
+  Table table;
+};
 
 template <int kMaxB>
-__global__ void __launch_bounds__(kMaxLanes)
+__global__ void __launch_bounds__(kThreads, 1)
     fused_apply_kernel(const int32_t* __restrict__ dir,
                        const uint8_t* __restrict__ frozen,
                        const int32_t* __restrict__ kinds,
@@ -64,61 +74,72 @@ __global__ void __launch_bounds__(kMaxLanes)
                        int32_t* __restrict__ status,
                        int32_t* __restrict__ bids, int n, int B, int dmax,
                        int hash_id, int hash_shift) {
-  __shared__ int32_t s_kind[kMaxLanes];
-  __shared__ int32_t s_key[kMaxLanes];
-  __shared__ int32_t s_val[kMaxLanes];
-  __shared__ int32_t s_group[kMaxLanes];  // leader-table slot, -1 if idle
-  __shared__ int32_t t_bid[kTable];
-  __shared__ int32_t t_lead[kTable];
-
-  const int i = threadIdx.x;
-  for (int t = i; t < kTable; t += blockDim.x) {
-    t_bid[t] = -1;
-    t_lead[t] = INT_MAX;
-  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sh = *reinterpret_cast<Shared*>(smem);
+  auto& s = sh.groups;
+  sh.table.clear(kThreads);
 
   // --- phase A: route, frozen check, idle/frozen statuses ----------------
-  int32_t b = 0;
-  bool active = false;
-  if (i < n) {
-    const int32_t kind = kinds[i];
-    const int32_t key = keys[i];
-    b = repro_torch::route(dir, key, dmax, hash_id, hash_shift);
-    bids[i] = b;
-    active = repro_torch::is_update(kind) && !frozen[b];
-    if (!active) status[i] = kind == 0 ? kStIdle : kStFrozen;
-    s_kind[i] = kind;
-    s_key[i] = key;
-    s_val[i] = values[i];
+  // Each step runs over the thread's lanes before the next, so that their
+  // global loads are in flight together.
+  int32_t kind[kItems], key[kItems], val[kItems], b[kItems];
+  bool active[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    kind[j] = i < n ? kinds[i] : 0;
+    key[j] = i < n ? keys[i] : 0;
+    val[j] = i < n ? values[i] : 0;
   }
-  __syncthreads();
-
-  // --- phase A2: one leader-table slot per bucket, first lane leads ------
-  int group = -1;
-  if (active) {
-    int t = static_cast<int>((static_cast<uint32_t>(b) * 2654435761u) >>
-                             (32 - kTableBits));
-    while (true) {
-      const int prev = atomicCAS(&t_bid[t], -1, b);
-      if (prev == -1 || prev == b) break;
-      t = (t + 1) & (kTable - 1);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    b[j] = i < n ? repro_torch::route(dir, key[j], dmax, hash_id, hash_shift)
+                 : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    active[j] = repro_torch::is_update(kind[j]) && !frozen[b[j]];
+  }
+  __syncthreads();  // the table is clear
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    uint32_t group = repro_torch::kIdleKey;
+    if (i < n) {
+      bids[i] = b[j];
+      if (active[j]) {
+        s.kind[i] = kind[j];
+        s.key[i] = key[j];
+        s.val[i] = val[j];
+        s.bid[i] = b[j];
+        group = sh.table.insert(b[j]);
+      } else {
+        s.status[i] = kind[j] == 0 ? kStIdle : kStFrozen;
+      }
     }
-    atomicMin(&t_lead[t], i);
-    group = t;
+    s.run_key[i] = group;
   }
-  if (i < n) s_group[i] = group;
   __syncthreads();
 
-  // --- phase B: leaders combine their groups in lane order ---------------
-  if (!active || t_lead[group] != i) return;
-  const int64_t base = static_cast<int64_t>(b) * B;
-  repro_torch::RegisterRow<kMaxB> row;
-  row.load(pool_keys + base, pool_vals + base, B);
-  for (int j = i; j < n; ++j) {
-    if (s_group[j] != group) continue;
-    status[j] = repro_torch::apply_op(row, B, s_kind[j], s_key[j], s_val[j]);
-  }
-  row.store(pool_keys + base, pool_vals + base, B);
+  // --- phase B: bucket runs in lane order --------------------------------
+  Groups::apply_runs<repro_torch::RegisterRow<kMaxB>>(s, Table::kKeyBits, B,
+                                                      pool_keys, pool_vals);
+  for (int i = threadIdx.x; i < n; i += kThreads) status[i] = s.status[i];
+}
+
+template <int kMaxB>
+cudaError_t launch(const int32_t* d, const uint8_t* fr, const int32_t* kd,
+                   const int32_t* ky, const int32_t* vl, int32_t* pk,
+                   int32_t* pv, int32_t* st, int32_t* bd, int n, int B,
+                   int dmax, int hash_id, int hash_shift, cudaStream_t s) {
+  constexpr size_t bytes = sizeof(Shared);
+  const cudaError_t e =
+      repro_torch::open_shared_memory(fused_apply_kernel<kMaxB>, bytes);
+  if (e != cudaSuccess) return e;
+  fused_apply_kernel<kMaxB><<<1, kThreads, bytes, s>>>(
+      d, fr, kd, ky, vl, pk, pv, st, bd, n, B, dmax, hash_id, hash_shift);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -134,9 +155,8 @@ extern "C" int fused_apply_launch(const void* dir, const void* frozen,
                                   int n, int B, int dmax, int hash_id,
                                   int hash_shift, void* stream) {
   if (n <= 0) return 0;
-  if (n > kMaxLanes || B < 1 || B > 32)
+  if (n > Groups::kChunk || B < 1 || B > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = (n + 31) / 32 * 32;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* d = static_cast<const int32_t*>(dir);
   const auto* fr = static_cast<const uint8_t*>(frozen);
@@ -147,11 +167,10 @@ extern "C" int fused_apply_launch(const void* dir, const void* frozen,
   auto* pv = static_cast<int32_t*>(pool_vals);
   auto* st = static_cast<int32_t*>(status);
   auto* bd = static_cast<int32_t*>(bids);
-  if (B <= 8)
-    fused_apply_kernel<8><<<1, threads, 0, s>>>(
-        d, fr, kd, ky, vl, pk, pv, st, bd, n, B, dmax, hash_id, hash_shift);
-  else
-    fused_apply_kernel<32><<<1, threads, 0, s>>>(
-        d, fr, kd, ky, vl, pk, pv, st, bd, n, B, dmax, hash_id, hash_shift);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e =
+      B <= 8 ? launch<8>(d, fr, kd, ky, vl, pk, pv, st, bd, n, B, dmax,
+                         hash_id, hash_shift, s)
+             : launch<32>(d, fr, kd, ky, vl, pk, pv, st, bd, n, B, dmax,
+                          hash_id, hash_shift, s);
+  return static_cast<int>(e);
 }

@@ -1,21 +1,23 @@
 """The apply kernels: the fused write transaction and the grouped apply.
 
 ``fused_apply`` launches the hand-written CUDA kernel
-(``csrc/fused_apply.cu``: one thread block per transaction, one leader
-thread per bucket group) for CUDA tensors and runs ``fused_apply_plain``,
-its plain PyTorch version, for CPU tensors. It replaces the Pallas TPU
-kernel ``repro/kernels/apply.py::fused_apply``, with the contract of
+(``csrc/fused_apply.cu``: one thread block per transaction) for CUDA
+tensors and runs ``fused_apply_plain``, its plain PyTorch version, for CPU
+tensors. It replaces the Pallas TPU kernel
+``repro/kernels/apply.py::fused_apply``, with the contract of
 ``repro/kernels/ref.py::fused_apply_ref``; its bound is its own (one block
 of at most 1024 lanes, rows of at most 32 slots).
 
-``grouped_apply`` launches ``csrc/grouped_apply.cu`` (one thread per run of
-ops on one bucket, as many blocks as the batch needs) for CUDA tensors and
-runs ``grouped_apply_plain`` for CPU tensors. It replaces the Pallas TPU
-kernel ``repro/kernels/apply.py::grouped_apply``, with the contract of
-``repro/kernels/ref.py::apply_ref``, and serves the transactions beyond the
-fused kernel's bound (``kernels/plan.py``). Both kernels share one combine
-step (``csrc/bucket_row.cuh``), as both plain versions share
-``core/table.py::wave_combine``.
+``grouped_apply`` launches ``csrc/grouped_apply.cu`` (one thread block
+working through the batch in 4,096-lane chunks, in lane order) for CUDA
+tensors and runs ``grouped_apply_plain`` for CPU tensors. It replaces the
+Pallas TPU kernel ``repro/kernels/apply.py::grouped_apply``, with the
+contract of ``repro/kernels/ref.py::apply_ref``, takes its ops in any order,
+and serves the transactions beyond the fused kernel's bound
+(``kernels/plan.py``). Both kernels group a chunk's ops by bucket with one
+core (``csrc/lane_groups.cuh``: a stable block radix sort in shared
+memory) and share one combine step (``csrc/bucket_row.cuh``), as both plain
+versions share ``core/table.py::wave_combine``.
 
 Ops never resize here: an op that meets a full bucket reports ``ST_FULL``
 and is left to the split rounds of ``core/table.py::apply_batch`` (the
@@ -40,14 +42,18 @@ ST_TRUE = 1
 ST_FROZEN = -2
 ST_FULL = -3
 
-# the kernel's geometry: one thread per lane in one block, and a leader
-# keeps its bucket row in registers
+# the fused kernel's geometry: one block takes the whole transaction as one
+# chunk of the grouping core, and a run's owner keeps its bucket row in
+# registers
 MAX_LANES = 1024
 MAX_BUCKET_SIZE = 32
+# lanes per chunk of csrc/grouped_apply.cu (a batch wider than this is
+# worked through chunk after chunk)
+GROUPED_CHUNK = 4096
 
 _FUSED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
-_GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+_GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                      + [ctypes.c_void_p])
 
 
@@ -131,11 +137,11 @@ fused_apply.launches = 0
 def grouped_apply_plain(kinds, keys, values, bucket_ids, pool_keys,
                         pool_vals):
     """Plain version of the grouped apply, the contract of ``apply_ref``:
-    ops apply in index order. It is the plain transaction's wave loop
-    (``core/table.py::wave_combine``) with no bucket frozen; within a
-    bucket the wave order is index order, and ops on distinct buckets
-    commute, so it needs no sorted input. The trash row takes the idle
-    lanes' writes."""
+    ops apply in index order, in any input order. It is the plain
+    transaction's wave loop (``core/table.py::wave_combine``) with no bucket
+    frozen; within a bucket the wave order is index order, and ops on
+    distinct buckets commute. The trash row takes the idle lanes'
+    writes."""
     update = (kinds == 1) | (kinds == 2)
     frozen = torch.zeros(pool_keys.shape[0], dtype=torch.bool,
                          device=kinds.device)
@@ -151,17 +157,16 @@ def grouped_apply_plain(kinds, keys, values, bucket_ids, pool_keys,
 def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
                   values: torch.Tensor, bucket_ids: torch.Tensor,
                   pool_keys: torch.Tensor, pool_vals: torch.Tensor):
-    """Combining apply of ops sorted by (bucket, lane), any batch width.
+    """Combining apply of ops in any order, any batch width.
 
     kinds i32[M] (0 = idle, 1 = insert/upsert, 2 = delete), keys / values
     i32[M], bucket_ids i32[M] (the pool row of each op, below P); pool_keys
     / pool_vals the FULL [P+1, B] pools, trash row included, where the JAX
     kernel takes the [P, B] pools without it. Ops apply as if one by one in
     index order, the full test first (``ST_FULL`` even for a delete); the
-    kernel ignores freezing, so the caller completes frozen ops. The active
-    ops of one bucket must be consecutive, with no other op between them,
-    as the (bucket, lane) sort with idle lanes last makes them; idle ops
-    may carry any bucket id.
+    kernel ignores freezing, so the caller completes frozen ops. The ops
+    need no sorting: the active ops of one bucket may lie anywhere in the
+    batch, with other ops between them; idle ops may carry any bucket id.
 
     The pools are updated **in place** and returned: the caller's previous
     pool tensors (and a ``TableState`` holding them) are consumed. Returns
@@ -186,7 +191,8 @@ def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
     rc = launch(kinds.data_ptr(), keys.data_ptr(), values.data_ptr(),
                 bucket_ids.data_ptr(), pool_keys.data_ptr(),
                 pool_vals.data_ptr(), status.data_ptr(), m,
-                pool_keys.shape[1], torch.cuda.current_stream(dev).cuda_stream)
+                pool_keys.shape[1], pool_keys.shape[0],
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "grouped_apply")
     grouped_apply.launches += 1
     return pool_keys, pool_vals, status

@@ -3,8 +3,8 @@
 ``plan_lookup`` / ``plan_apply`` are the facade's dispatch targets. Under a
 ``"cuda"`` plan a lookup is one ``fused_probe`` launch, or a route in
 PyTorch and one ``probe`` launch; a write transaction is one
-``fused_apply`` launch, or a route and a stable (bucket, lane) sort in
-PyTorch around one ``grouped_apply`` launch. The bookkeeping around the
+``fused_apply`` launch, or a route in PyTorch and one ``grouped_apply``
+launch on the ops in lane order. The bookkeeping around the
 kernels is shared: seq gating, occupancy counts from the kernel's
 statuses, the frozen / replay / NOP status overlays; ops the kernel
 reports ``ST_FULL`` re-enter the plain transaction, which runs the bounded
@@ -97,22 +97,17 @@ def _apply_batch_fused_impl(cfg: T.TableConfig, state: T.TableState,
 def _apply_batch_kernel_impl(cfg: T.TableConfig, state: T.TableState,
                              ops: T.OpBatch):
     """One write transaction through ``grouped_apply``: route, complete the
-    frozen-destination ops here (the kernel ignores freezing), sort the
-    live ops by (bucket, lane) — idle lanes last, with their real bucket
-    ids — apply, un-sort the statuses. The pools are updated in place:
+    frozen-destination ops here (the kernel ignores freezing), apply the
+    ops in lane order with the frozen and replayed lanes masked to NOP (the
+    kernel groups them by bucket itself). The pools are updated in place:
     ``state`` is consumed."""
-    P = cfg.pool_size
     fresh, replay = _gate(state, ops)
     _, bid = T._route(cfg, state.directory, ops.key)
     frozen_hit = fresh & state.frozen[bid.long()]
     live = fresh & ~frozen_hit
     kinds = torch.where(live, ops.kind, T.NOP).to(torch.int32)
-    order = torch.argsort(torch.where(live, bid, P + 1), stable=True)
-    pk, pv, status_sorted = kapply.grouped_apply(
-        kinds[order], ops.key[order], ops.value[order], bid[order],
-        state.keys, state.vals)
-    status = torch.empty_like(status_sorted)
-    status[order] = status_sorted
+    pk, pv, status = kapply.grouped_apply(kinds, ops.key, ops.value, bid,
+                                          state.keys, state.vals)
     st = _count_applied(cfg, state._replace(keys=pk, vals=pv), ops, status,
                         bid, live, frozen_hit)
     return _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit,

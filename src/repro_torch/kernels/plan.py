@@ -10,14 +10,14 @@ the hot path:
                kernel's bound (one thread block of at most 1024 lanes,
                bucket rows of at most 32 slots in registers) a write
                transaction is one ``fused_apply`` launch and a lookup one
-               ``fused_probe`` launch. Beyond it writes route and sort in
-               PyTorch and launch ``grouped_apply``, and lookups route in
-               PyTorch and launch ``probe``: a table whose writes leave the
-               fused kernel routes its lookups the same way, as the JAX
-               package does past its own fused bounds. Ops that meet a full
-               bucket take the ``ST_FULL`` → ``apply_batch`` fallback. On
-               CPU tensors each kernel wrapper runs its plain version, so
-               this path also runs on the CPU.
+               ``fused_probe`` launch. Beyond it writes route in PyTorch and
+               launch ``grouped_apply`` on the ops in lane order, and
+               lookups route in PyTorch and launch ``probe``: a table whose
+               writes leave the fused kernel routes its lookups the same
+               way, as the JAX package does past its own fused bounds. Ops
+               that meet a full bucket take the ``ST_FULL`` →
+               ``apply_batch`` fallback. On CPU tensors each kernel wrapper
+               runs its plain version, so this path also runs on the CPU.
 
 ``backend="auto"`` resolves to ``"cuda"`` on a CUDA device and to
 ``"plain"`` on the CPU. Every geometry has a plan.

@@ -284,32 +284,42 @@ def test_probe_plain_never_finds_empty_query():
 # grouped apply: plain version ≡ apply_ref over carried rounds
 
 
-def grouped_ops(rng, m, rows, key_hi, idle_frac=0.2, ins_frac=0.5):
-    """``m`` ops over ``rows`` sorted by (bucket, lane) as the table sorts
-    them: the active ops by bucket, then the idle lanes, which keep real
-    bucket ids (so they collide with live runs)."""
+def lane_order_ops(rng, m, rows, key_hi, idle_frac=0.2, ins_frac=0.5):
+    """``m`` ops over ``rows`` in lane order, as the table hands them to
+    ``grouped_apply``: buckets interleaved, idle lanes (with real bucket
+    ids) between the active lanes of one bucket."""
     kinds = np.where(rng.random(m) < ins_frac, 1, 2).astype(np.int32)
     kinds[rng.random(m) < idle_frac] = 0
     bids = rng.choice(rows, size=m).astype(np.int32)
     keys = rng.integers(1, key_hi, size=m).astype(np.int32)
     values = rng.integers(0, 1 << 20, size=m).astype(np.int32)
+    return [kinds, keys, values, bids]
+
+
+def grouped_ops(rng, m, rows, key_hi, idle_frac=0.2, ins_frac=0.5):
+    """``lane_order_ops`` sorted by (bucket, lane) as the JAX package sorts
+    them: the active ops by bucket, then the idle lanes, which keep real
+    bucket ids (so they collide with live runs)."""
+    ops = lane_order_ops(rng, m, rows, key_hi, idle_frac, ins_frac)
+    kinds, bids = ops[0], ops[3]
     order = np.argsort(np.where(kinds != 0, bids, rows.max() + 2),
                        kind="stable")
-    return [x[order] for x in (kinds, keys, values, bids)]
+    return [x[order] for x in ops]
 
 
 def run_grouped_rounds(rng, P, B, m, *, fill, key_hi, n_rows=None,
-                       rounds=3, idle_frac=0.2, ins_frac=0.5):
-    """Carry [P+1, B] pools through ``rounds`` sorted batches in the port
-    and [P, B] pools through ``apply_ref``: statuses and rows 0..P-1 must
-    match exactly. Returns every round's (statuses, kinds)."""
+                       rounds=3, idle_frac=0.2, ins_frac=0.5,
+                       make_ops=grouped_ops):
+    """Carry [P+1, B] pools through ``rounds`` batches from ``make_ops``
+    in the port and [P, B] pools through ``apply_ref``: statuses and rows
+    0..P-1 must match exactly. Returns every round's (statuses, kinds)."""
     _, _, pk, pv = fused_case(rng, 4, P, B, fill, 0.0)
     rows = rng.choice(P, size=n_rows or P, replace=False)
     jpk, jpv = jnp.asarray(pk[:P]), jnp.asarray(pv[:P])
     tpk, tpv = t(pk), t(pv)
     seen, kinds = [], []
     for r in range(rounds):
-        ops = grouped_ops(rng, m, rows, key_hi, idle_frac, ins_frac)
+        ops = make_ops(rng, m, rows, key_hi, idle_frac, ins_frac)
         kinds.append(ops[0])
         jpk, jpv, jst = kref.apply_ref(*(jnp.asarray(x) for x in ops),
                                        jpk, jpv)
@@ -338,6 +348,49 @@ def test_grouped_apply_plain_matches_apply_ref(P, B, m, fill, n_rows):
     seen, _ = run_grouped_rounds(rng, P, B, m, fill=fill, key_hi=40,
                                  n_rows=n_rows)
     assert (seen == ST_IDLE).any() and (seen == ST_TRUE).any()
+
+
+def interleaved_runs(kinds, bids):
+    """Buckets whose active ops are not consecutive, and those with an idle
+    lane between two of their active ops."""
+    split, idle_between = set(), set()
+    for b in np.unique(bids[kinds != 0]):
+        lanes = np.nonzero((kinds != 0) & (bids == b))[0]
+        if lanes[-1] - lanes[0] + 1 > lanes.size:
+            split.add(int(b))
+            if (kinds[lanes[0]:lanes[-1]] == 0).any():
+                idle_between.add(int(b))
+    return split, idle_between
+
+
+@needs_jax
+@pytest.mark.parametrize("P,B,m,fill,n_rows,key_hi", [
+    (16, 4, 48, 0.5, 5, 12),      # few rows: long interleaved runs
+    (64, 8, 200, 0.7, 20, 30),
+    (100, 8, 300, 0.95, None, 40),  # near-full rows → ST_FULL
+    (24, 40, 96, 0.9, 6, 30),     # rows wider than the register path
+])
+def test_grouped_apply_plain_lane_order_matches_apply_ref(P, B, m, fill,
+                                                          n_rows, key_hi):
+    """Ops in lane order, unsorted, as ``kernels/ops.py`` now hands them
+    over: ``grouped_apply_plain`` equals ``apply_ref`` on the same ops, with
+    buckets interleaved, idle lanes between one bucket's active lanes and
+    duplicate keys."""
+    batches = []
+
+    def make_ops(*args):
+        batches.append(lane_order_ops(*args))
+        return batches[-1]
+
+    rng = np.random.default_rng(P * 7 + m)
+    seen, _ = run_grouped_rounds(rng, P, B, m, fill=fill, key_hi=key_hi,
+                                 n_rows=n_rows, make_ops=make_ops)
+    assert (seen == ST_IDLE).any() and (seen == ST_FALSE).any()
+    for kinds, keys, _, bids in batches:
+        split, idle_between = interleaved_runs(kinds, bids)
+        assert split and idle_between
+        active_keys = keys[kinds != 0]
+        assert np.unique(active_keys).size < active_keys.size
 
 
 @needs_jax
@@ -406,23 +459,36 @@ def test_cuda_fused_probe_equals_plain(cuda, dmax, P, B, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dmax,P,B,n,fill", [(5, 16, 4, 64, 0.95),
-                                             (8, 100, 8, 512, 0.6),
-                                             (6, 32, 16, 1024, 0.8)])
-def test_cuda_fused_apply_equals_plain(cuda, dmax, P, B, n, fill):
+@pytest.mark.parametrize("dmax,P,B,n,fill,key_hi,one_bucket", [
+    (5, 16, 4, 64, 0.95, 64, False),
+    (8, 100, 8, 512, 0.6, 64, False),
+    (6, 32, 16, 1024, 0.8, 64, False),
+    (8, 100, 32, 512, 0.6, 200, False),   # 32-slot rows
+    (6, 32, 8, 1024, 0.3, 64, True),      # every lane on one bucket
+    (6, 32, 32, 777, 0.3, 20, True),      # ... which never fills
+])
+def test_cuda_fused_apply_equals_plain(cuda, dmax, P, B, n, fill, key_hi,
+                                       one_bucket):
     rng = np.random.default_rng(n + P)
     directory, frozen, pk, pv = fused_case(rng, dmax, P, B, fill)
+    if one_bucket:
+        directory[:] = 3
+        frozen[3] = False
     d, fr = t(directory, cuda), t(frozen, cuda)
     kpk, kpv, ppk, ppv = (t(x, cuda) for x in (pk, pv, pk, pv))
     for r in range(3):
-        ops = [t(x, cuda) for x in fused_ops(rng, n)]
+        ops = [t(x, cuda) for x in fused_ops(rng, n, key_hi)]
+        before = tapply.fused_apply.launches
         _, _, kst, kbid = tapply.fused_apply(d, fr, *ops, kpk, kpv, dmax=dmax)
         _, _, pst, pbid = tapply.fused_apply_plain(d, fr, *ops, ppk, ppv,
                                                    dmax=dmax)
         torch.cuda.synchronize()
+        assert tapply.fused_apply.launches == before + 1
         assert torch.equal(kst, pst) and torch.equal(kbid, pbid), r
         assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
                                                              ppv[:P]), r
+        assert torch.equal(kpk[P], t(pk[P], cuda)), r   # trash row untouched
+        assert torch.equal(kpv[P], t(pv[P], cuda)), r
 
 
 @pytest.mark.cuda
@@ -439,18 +505,36 @@ def test_cuda_probe_equals_plain(cuda, P, B, N):
     assert torch.equal(kf, pf) and torch.equal(kv, pv_)
 
 
+CHUNK = tapply.GROUPED_CHUNK
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,B,m,fill,n_rows", [(16, 4, 64, 0.95, 6),
-                                               (100, 8, 4096, 0.6, None),
-                                               (64, 16, 3000, 0.8, 20),
-                                               (32, 40, 500, 0.9, 8)])
-def test_cuda_grouped_apply_equals_plain(cuda, P, B, m, fill, n_rows):
+@pytest.mark.parametrize("P,B,m,fill,n_rows,key_hi,order", [
+    (16, 4, 64, 0.95, 6, 60, "sorted"),
+    (100, 8, 4096, 0.6, None, 60, "sorted"),
+    (64, 16, 3000, 0.8, 20, 60, "sorted"),
+    (32, 40, 500, 0.9, 8, 60, "sorted"),
+    (16, 4, 64, 0.95, 6, 60, "lane"),
+    (100, 8, 4096, 0.6, None, 60, "lane"),
+    (64, 16, 3000, 0.8, 20, 60, "lane"),
+    (32, 40, 500, 0.9, 8, 60, "lane"),
+    # wider than one chunk: every bucket's ops span the chunk borders, on
+    # 32-slot rows that never fill (at most 19 keys on about 10 of them)
+    (2000, 32, 3 * CHUNK + 17, 0.3, 300, 20, "lane"),
+    # every lane on one bucket, across a chunk border; the 32-slot row
+    # never fills, the 8-slot one does
+    (16, 32, CHUNK + 17, 0.3, 1, 20, "lane"),
+    (16, 8, 2 * CHUNK, 0.3, 1, 20, "lane"),
+])
+def test_cuda_grouped_apply_equals_plain(cuda, P, B, m, fill, n_rows, key_hi,
+                                         order):
     rng = np.random.default_rng(m + P)
     _, _, pk, pv = fused_case(rng, 4, P, B, fill, 0.0)
     rows = rng.choice(P, size=n_rows or P, replace=False)
+    make_ops = grouped_ops if order == "sorted" else lane_order_ops
     kpk, kpv, ppk, ppv = (t(x, cuda) for x in (pk, pv, pk, pv))
     for r in range(3):
-        ops = [t(x, cuda) for x in grouped_ops(rng, m, rows, 60)]
+        ops = [t(x, cuda) for x in make_ops(rng, m, rows, key_hi)]
         before = tapply.grouped_apply.launches
         _, _, kst = tapply.grouped_apply(*ops, kpk, kpv)
         _, _, pst = tapply.grouped_apply_plain(*ops, ppk, ppv)
@@ -460,3 +544,4 @@ def test_cuda_grouped_apply_equals_plain(cuda, P, B, m, fill, n_rows):
         assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
                                                              ppv[:P]), r
         assert torch.equal(kpk[P], t(pk[P], cuda)), r   # trash row untouched
+        assert torch.equal(kpv[P], t(pv[P], cuda)), r

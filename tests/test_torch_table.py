@@ -266,6 +266,67 @@ def test_wide_lanes_sorted_links(backend):
     assert {JT.TRUE, JT.FALSE} <= seen
 
 
+def test_grouped_plan_hands_grouped_apply_lane_order(monkeypatch):
+    """The ``"grouped"`` plan passes the routed ops to ``grouped_apply``
+    (spied) in lane order, unsorted, with the frozen and replayed lanes
+    masked to NOP; the transaction still equals ``jax_grouped_path``, which
+    sorts them by (bucket, lane)."""
+    cfg_kw = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=48)
+    jcfg, tcfg = JT.TableConfig(**cfg_kw), TT.TableConfig(**cfg_kw)
+    P, n = jcfg.pool_size, jcfg.n_lanes
+    fns = jax_fns(jcfg)
+    calls = []
+    real = tops.kapply.grouped_apply
+
+    def spy(*args):
+        calls.append([a.clone() for a in args[:4]])
+        return real(*args)
+
+    monkeypatch.setattr(tops.kapply, "grouped_apply", spy)
+    rng = np.random.default_rng(21)
+    jk, ts = JT.init_table(jcfg), TT.init_table(tcfg, "cpu")
+    masked = {"frozen": 0, "replay": 0, "unsorted": 0}
+    prev = None
+    for step in range(10):
+        kinds = rng.integers(0, 3, size=n).astype(np.int32)
+        keys = rng.integers(1, 300, size=n).astype(np.int32)
+        vals = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+        seq = np.asarray(jk.applied_seq) + 1
+        if step % 4 == 3:       # half the lanes replay the previous batch
+            again = rng.random(n) < 0.5
+            kinds, keys, vals, seq = (np.where(again, p, x) for p, x in
+                                      zip(prev, (kinds, keys, vals, seq)))
+        prev = kinds, keys, vals, seq
+        if step == 2:
+            parent = buddy_parent(TT.to_numpy(ts), rng, P)
+            ts, tok = TT.freeze_buddies(tcfg, ts, *parent)
+            jk, jok = fns["freeze"](jk, *parent)
+            assert bool(tok) and bool(jok)
+        to = TT.OpBatch(*(torch.tensor(x) for x in (kinds, keys, vals, seq)))
+        jo = JT.OpBatch(*(jnp.asarray(x) for x in (kinds, keys, vals, seq)))
+        _, bid = TT._route(tcfg, ts.directory, to.key)
+        fresh = (to.kind != TT.NOP) & (to.seq > ts.applied_seq)
+        frozen_hit = fresh & ts.frozen[bid.long()]
+        want_kinds = torch.where(fresh & ~frozen_hit, to.kind, TT.NOP)
+        masked["frozen"] += int(frozen_hit.sum())
+        masked["replay"] += int(((to.kind != TT.NOP) & ~fresh).sum())
+
+        ts, tr = port_apply("grouped", tcfg, ts, to)
+        jk, kr = fns["grouped"](jk, jo)
+        where = f"step {step}"
+        np.testing.assert_array_equal(tr.status.numpy(),
+                                      np.asarray(kr.status), err_msg=where)
+        assert_same_state(TT.to_numpy(ts), np_state(jk), P, where=where)
+
+        g_kinds, g_keys, g_vals, g_bids = calls[-1]
+        assert torch.equal(g_keys, to.key) and torch.equal(g_vals, to.value)
+        assert torch.equal(g_bids, bid) and torch.equal(g_kinds, want_kinds)
+        active = g_bids[g_kinds != TT.NOP]
+        masked["unsorted"] += int((active[1:] < active[:-1]).any())
+    assert len(calls) == 10
+    assert all(v > 0 for v in masked.values()), masked
+
+
 def test_wave_loop_stream_no_fast_path():
     """use_fast_path=False pins the serial wave loop in both packages."""
     drive("plain", dict(BASE, use_fast_path=False, bucket_size=4), steps=20,
