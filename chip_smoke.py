@@ -9,7 +9,11 @@ printing one JSON line:
 1. build: kernel build seconds, the card's name and power limit;
 2. kernels: each kernel against its plain PyTorch version at the shapes of
    the path that launches it — integers, tolerance 0: ``fused_probe`` and
-   ``probe`` (2**20 queries, the latter routed beforehand); ``fused_apply``
+   ``probe`` (2**20 queries, the latter routed beforehand; then the cases
+   of their shared row probe, one line each: hits at every slot position
+   of 4-, 8- and 32-slot rows that hold a key twice, an 8-slot pool whose
+   keys or values start off a 16-byte boundary, half the queries EMPTY);
+   ``fused_apply``
    (512-lane batches, all five statuses; every lane on one bucket; 32-slot
    rows) and ``grouped_apply`` (4,096 lanes sorted by (bucket, lane) and in
    lane order, idle lanes on live buckets; 3 chunks and 17 lanes whose
@@ -37,7 +41,9 @@ printing one JSON line:
    versions and their bound, with the PyTorch route in front of ``probe``,
    the sort and un-sort ``grouped_apply`` no longer needs, the fused probe
    on the wide path's queries and the launch floor (a one-element add);
-   each kernel's registers and spills from its ``ptxas -v`` report.
+   the two probes warm (back to back) and cold (the L2 flushed before each
+   launch), each also above the floor timed the same way; each kernel's
+   registers and spills from its ``ptxas -v`` report (no spills).
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -110,6 +116,31 @@ def cuda_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+# bytes written between launches to flush the 50 MB L2
+FLUSH_BYTES = 256 << 20
+
+
+def cold_ms(fn, iters: int) -> float:
+    """Median device milliseconds of ``fn(i)`` over ``iters`` calls with the
+    L2 flushed before each: a 256 MiB scratch buffer is written, then an
+    event pair times ``fn`` alone, so the flush is not in the time. The
+    calls queue up behind a device-side sleep, as in ``cuda_ms``; ``fn``
+    must not synchronize."""
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn(0)
+    torch.cuda.synchronize()
+    pairs = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+             for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)
+    for i, (t0, t1) in enumerate(pairs):
+        scratch.fill_(i)
+        t0.record()
+        fn(i)
+        t1.record()
+    torch.cuda.synchronize()
+    return float(np.median([t0.elapsed_time(t1) for t0, t1 in pairs]))
 
 
 def host_ms(fn, iters: int) -> float:
@@ -204,6 +235,78 @@ def apply_case(kernel, plain, pk, pv, batches, dev):
     return out
 
 
+ROW_CASES = [("slots", 4), ("slots", 8), ("slots", 32), ("keys_off16", 8),
+             ("vals_off16", 8), ("empty", 8)]
+
+
+def offset_by_one(x: np.ndarray, dev):
+    """``x`` as a contiguous [R, B] tensor at storage offset 1: its base is
+    4 bytes off a 16-byte boundary, so the kernels take the slot-by-slot
+    row path."""
+    buf = torch.empty(x.size + 1, dtype=torch.int32, device=dev)
+    view = buf[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    check(view.data_ptr() % 16 != 0 and view.is_contiguous(), "offset view")
+    return view
+
+
+def row_probe_cases(rng, dev, P=1 << 14):
+    """The cases of the row probe the two lookup kernels share
+    (``csrc/row_probe.cuh``), each kernel against its plain version, one
+    ``kernel_case`` line per case. Rows are filled by keys routed to them,
+    then a fifth of the slots emptied, and every third row holds its first
+    key again in its last slot under another value (only the first match
+    may answer); queries are every live key once, so every slot position
+    has hits, as many keys never placed, and EMPTY queries (5%, or half in
+    the ``empty`` case). Returns {kernel: (mismatches, max abs err)}."""
+    from repro_torch.kernels.lookup import (fused_probe, fused_probe_plain,
+                                            probe, probe_plain)
+    dmax = MAIN_SPEC["dmax"]
+    out = {"fused_probe": (0, 0), "probe": (0, 0)}
+    for case, B in ROW_CASES:
+        directory = (rng.permutation(1 << dmax) % P).astype(np.int32)
+        cand = distinct_keys(rng, 4 * P * B)
+        pk = np.full((P, B), EMPTY, np.int32)
+        pv = rng.integers(-2**31, 2**31, size=(P, B),
+                          dtype=np.int64).astype(np.int32)
+        placed = place_keys(pk, pv, cand, route_np(cand, directory, dmax), B,
+                            rng)
+        pk[rng.random((P, B)) < 0.2] = EMPTY
+        pk[::3, B - 1] = pk[::3, 0]
+        live = pk[pk != EMPTY]
+        q = rng.permutation(np.r_[live, cand[~placed][:live.size]])
+        q[rng.random(q.size) < (0.5 if case == "empty" else 0.05)] = EMPTY
+        bids = route_np(q, directory, dmax).astype(np.int32)
+        eq = (pk[bids] == q[:, None]) & (q != EMPTY)[:, None]
+        positions = np.unique(eq.argmax(axis=1)[eq.any(axis=1)]).size
+        pk_t = (offset_by_one(pk, dev) if case == "keys_off16"
+                else torch.tensor(pk, device=dev))
+        pv_t = (offset_by_one(pv, dev) if case == "vals_off16"
+                else torch.tensor(pv, device=dev))
+        q_t = torch.tensor(q, device=dev)
+        runs = {"fused_probe": (fused_probe, fused_probe_plain, dict(
+                    dmax=dmax), torch.tensor(directory, device=dev)),
+                "probe": (probe, probe_plain, {},
+                          torch.tensor(bids, device=dev))}
+        for name, (kernel, plain, kw, first) in runs.items():
+            kf, kv = kernel(first, q_t, pk_t, pv_t, **kw)
+            pf, pvals = plain(first, q_t, pk_t, pv_t, **kw)
+            torch.cuda.synchronize()
+            mm = int((kf != pf).sum() + (kv != pvals).sum())
+            err = int((kv.long() - pvals.long()).abs().max())
+            emit({"phase": "kernel_case", "kernel": name,
+                  "case": f"{case}_b{B}", "B": B, "queries": int(q.size),
+                  "found": int(kf.sum()), "empty_queries": int(
+                      (q == EMPTY).sum()), "slot_positions_hit": positions,
+                  "mismatches": mm, "max_abs_err": err})
+            check(mm == 0, f"{name} {case}_b{B}: disagrees with its plain "
+                  f"version in {mm} outputs")
+            check(positions == B, f"{case}_b{B}: hits at {positions} of "
+                  f"{B} slot positions")
+            out[name] = (out[name][0] + mm, max(out[name][1], err))
+    return out
+
+
 def kernel_checks(rng, dev):
     from repro_torch.kernels.apply import (GROUPED_CHUNK, ST_FALSE,
                                            ST_FROZEN, ST_FULL, ST_IDLE,
@@ -257,6 +360,7 @@ def kernel_checks(rng, dev):
     routed_err = int((rv.long() - rpv.long()).abs().max())
     check(routed_mm == 0, f"probe disagrees with its plain version in "
           f"{routed_mm} outputs")
+    row_checks = row_probe_cases(rng, dev)
 
     # the apply kernels: 512-lane (fused_apply) and 4,096-lane
     # (grouped_apply) batches over hot rows of mixed fill, carried over
@@ -365,11 +469,16 @@ def kernel_checks(rng, dev):
     apply_err = max(r["max_abs_err"] for r in results["fused_apply"].values())
     g_mm = sum(r["mismatches"] for r in results["grouped_apply"].values())
     g_err = max(r["max_abs_err"] for r in results["grouped_apply"].values())
+    probe_mm += row_checks["fused_probe"][0]
+    probe_err = max(probe_err, row_checks["fused_probe"][1])
+    routed_mm += row_checks["probe"][0]
+    routed_err = max(routed_err, row_checks["probe"][1])
+    row_cases = [f"{case}_b{B}" for case, B in ROW_CASES]
     emit({"phase": "kernels", "fused_probe": {
-        "queries": n_q, "found": int(kf.sum()), "mismatches": probe_mm,
-        "max_abs_err": probe_err}, "probe": {
-        "queries": n_q, "found": int(rf.sum()), "mismatches": routed_mm,
-        "max_abs_err": routed_err}, "fused_apply": {
+        "queries": n_q, "found": int(kf.sum()), "cases": row_cases,
+        "mismatches": probe_mm, "max_abs_err": probe_err}, "probe": {
+        "queries": n_q, "found": int(rf.sum()), "cases": row_cases,
+        "mismatches": routed_mm, "max_abs_err": routed_err}, "fused_apply": {
         "cases": sorted(results["fused_apply"]), "mismatches": apply_mm,
         "max_abs_err": apply_err}, "grouped_apply": {
         "cases": sorted(results["grouped_apply"]), "mismatches": g_mm,
@@ -874,6 +983,8 @@ def fused_times(t, rng, dev):
     kw = dict(dmax=cfg.dmax)
     probe_ms = cuda_ms(lambda i: fused_probe(st.directory, qs[i % 64], pk, pv,
                                              **kw), 200)
+    probe_cold_ms = cold_ms(lambda i: fused_probe(
+        st.directory, qs[i % 64], pk, pv, **kw), 200)
     probe_plain_ms = cuda_ms(lambda i: fused_probe_plain(
         st.directory, qs[i % 64], pk, pv, **kw), 20)
     hits = sum(int(fused_probe_plain(st.directory, q, pk, pv, **kw)[0].sum())
@@ -896,6 +1007,8 @@ def fused_times(t, rng, dev):
              "fused_apply": (apply_ms, apply_plain_ms, apply_bytes,
                              n * (12 + 4 * B))},
             {"fused_probe_queries": N, "fused_probe_bytes": probe_bytes,
+             "fused_probe_warm_ms": probe_ms,
+             "fused_probe_cold_ms": probe_cold_ms,
              "fused_apply_lanes": n, "fused_apply_bytes": apply_bytes,
              "fused_apply_buckets": buckets})
 
@@ -920,6 +1033,8 @@ def unfused_times(tw, rng, dev):
     route_ms = cuda_ms(lambda i: T._route(cfg, st.directory, qs[i % 64]),
                        200)
     probe_ms = cuda_ms(lambda i: probe(bids[i % 64], qs[i % 64], pk, pv), 200)
+    probe_cold_ms = cold_ms(lambda i: probe(bids[i % 64], qs[i % 64], pk, pv),
+                            200)
     fused_ms = cuda_ms(lambda i: fused_probe(st.directory, qs[i % 64], pk, pv,
                                              dmax=cfg.dmax), 200)
     probe_plain_ms = cuda_ms(lambda i: probe_plain(bids[i % 64], qs[i % 64],
@@ -964,6 +1079,7 @@ def unfused_times(tw, rng, dev):
              "grouped_apply": (apply_ms, apply_plain_ms, apply_bytes,
                                n * 4 * B)},
             {"probe_queries": N, "probe_bytes": probe_bytes,
+             "probe_warm_ms": probe_ms, "probe_cold_ms": probe_cold_ms,
              "route_torch_ms": route_ms,
              "routed_lookup_ms": route_ms + probe_ms,
              "fused_probe_same_queries_ms": fused_ms,
@@ -1010,10 +1126,11 @@ def ptxas_report():
 
 
 def launch_floor_ms():
-    """The device time of the cheapest launch: a one-element in-place add,
-    timed with the kernels' harness."""
+    """The device time of the cheapest launch, a one-element in-place add,
+    timed with each of the kernels' harnesses: (``cuda_ms``, ``cold_ms``)."""
     x = torch.zeros(1, device="cuda")
-    return cuda_ms(lambda i: x.add_(1), 200)
+    return cuda_ms(lambda i: x.add_(1), 200), cold_ms(lambda i: x.add_(1),
+                                                      200)
 
 
 def kernel_times(t, tw, rng, dev, launches, checks):
@@ -1022,16 +1139,24 @@ def kernel_times(t, tw, rng, dev, launches, checks):
     times.update(wide_times)
     ptxas = ptxas_report()
     emit({"phase": "ptxas", "kernels": ptxas})
-    for name in ("fused_apply", "grouped_apply"):
+    for name in REPLACES:
         spills = [e for e in ptxas[name]
                   if e["spill_stores"] or e["spill_loads"]]
         check(not spills, f"{name} spills: {spills}")
-    emit({"phase": "kernel_times", **info_main, **info_wide,
-          "launch_floor_ms": launch_floor_ms(), "ok": True})
+    floor, floor_cold = launch_floor_ms()
+    info = {**info_main, **info_wide}
+    above = {}
+    for k in ("fused_probe", "probe"):
+        above[f"{k}_warm_above_floor_ms"] = info[f"{k}_warm_ms"] - floor
+        above[f"{k}_cold_above_floor_ms"] = info[f"{k}_cold_ms"] - floor_cold
+    emit({"phase": "kernel_times", **info, "launch_floor_ms": floor,
+          "launch_floor_cold_ms": floor_cold, **above, "ok": True})
     lines = [kernel_line(name, REPLACES[name], *times[name], launches,
                          checks) for name in REPLACES]
     for line in lines:
         line["registers"] = [e["registers"] for e in ptxas[line["name"]]]
+        if line["name"] in ("fused_probe", "probe"):
+            line["cold_ms"] = info[f"{line['name']}_cold_ms"]
     return lines
 
 

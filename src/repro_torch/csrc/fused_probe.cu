@@ -6,12 +6,17 @@
 // 16-bit halves for fp32 exactness and a dmax <= 17 cap. None of that
 // carries over: here each thread gathers directly, at any dmax.
 //
-// What bounds it on the H100: random 32-byte sectors from device memory.
-// Per query the thread reads its directory entry (4 MiB at dmax = 20, which
-// stays in the 50 MB L2), the 8-key row of its bucket and, on a hit, one
-// value (row_probe.cuh). There is no reuse to stage in shared memory, so the
-// design keeps every access a single sector and enough queries in flight to
-// hide latency.
+// What bounds it on the H100: a chain of dependent device-memory round
+// trips plus the launch, not bytes. A main-path lookup (4,608 queries)
+// moves 216,576 B, 0.065 us at 3.35 TB/s, yet takes 0.8 us above the
+// launch floor (1.1 us with the value read after the match; PERF.md §6).
+// Per query the chain was four round trips: the query, its directory entry
+// (4 MiB at dmax = 20, which stays in the 50 MB L2), the 8-key row of its
+// bucket and, only after the match, one value. It is now three:
+// row_probe.cuh reads the row's values beside its keys and picks the match
+// in registers, and the 64-thread blocks spread a lookup over 72 SMs
+// instead of 18. The first two steps stay in series: the route needs the
+// query's hash, the row needs the route.
 //
 // Contract (kernels/lookup.py::fused_probe_plain): found = any slot of the
 // routed row equals the query, and an EMPTY query never matches; val = the
@@ -25,18 +30,18 @@
 
 namespace {
 
-template <bool kRow8>
-__global__ void fused_probe_kernel(const int32_t* __restrict__ dir,
-                                   const int32_t* __restrict__ queries,
-                                   const int32_t* __restrict__ pool_keys,
-                                   const int32_t* __restrict__ pool_vals,
-                                   uint8_t* __restrict__ found,
-                                   int32_t* __restrict__ vals, int n, int B,
-                                   int dmax, int hash_id, int hash_shift) {
+template <int kVec>
+__global__ void __launch_bounds__(repro_torch::kProbeThreads)
+fused_probe_kernel(
+    const int32_t* __restrict__ dir, const int32_t* __restrict__ queries,
+    const int32_t* __restrict__ pool_keys,
+    const int32_t* __restrict__ pool_vals, uint8_t* __restrict__ found,
+    int32_t* __restrict__ vals, int n, int B, int dmax, int hash_id,
+    int hash_shift) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int32_t q = queries[i];
-  repro_torch::probe_row<kRow8>(
+  const int32_t q = __ldg(queries + i);
+  repro_torch::probe_row<kVec>(
       pool_keys, pool_vals,
       repro_torch::route(dir, q, dmax, hash_id, hash_shift), B, q, found + i,
       vals + i);
@@ -52,8 +57,8 @@ extern "C" int fused_probe_launch(const void* dir, const void* queries,
                                   int dmax, int hash_id, int hash_shift,
                                   void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (n + repro_torch::kProbeThreads - 1) /
+                     repro_torch::kProbeThreads;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* d = static_cast<const int32_t*>(dir);
   const auto* q = static_cast<const int32_t*>(queries);
@@ -61,11 +66,10 @@ extern "C" int fused_probe_launch(const void* dir, const void* queries,
   const auto* pv = static_cast<const int32_t*>(pool_vals);
   auto* f = static_cast<uint8_t*>(found);
   auto* v = static_cast<int32_t*>(vals);
-  if (repro_torch::rows_of_eight(pk, B))
-    fused_probe_kernel<true><<<blocks, threads, 0, s>>>(
-        d, q, pk, pv, f, v, n, B, dmax, hash_id, hash_shift);
-  else
-    fused_probe_kernel<false><<<blocks, threads, 0, s>>>(
-        d, q, pk, pv, f, v, n, B, dmax, hash_id, hash_shift);
+  repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
+    fused_probe_kernel<decltype(vec)::value>
+        <<<blocks, repro_torch::kProbeThreads, 0, s>>>(
+            d, q, pk, pv, f, v, n, B, dmax, hash_id, hash_shift);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,17 @@
 // None of it carries over: here each thread reads its bucket id and gathers
 // its row directly, whatever the pool's size.
 //
-// What bounds it on the H100: random 32-byte sectors from device memory, as
-// in fused_probe.cu, less the directory entry: per query the bucket id, the
-// query, one key row and, on a hit, one value. The row probe is the one
-// fused_probe.cu uses (row_probe.cuh).
+// What bounds it on the H100: as in fused_probe.cu, the launch and a chain
+// of dependent device-memory round trips, not bytes (a wide-path lookup of
+// 36,864 queries moves 1.7 MB, 0.52 us at 3.35 TB/s), and at that width
+// also the rate of random sectors. Per query the chain was three round
+// trips: the bucket id and the query (two loads in one step), the key row,
+// then one value. It is now two: the row probe (row_probe.cuh, shared with
+// fused_probe.cu) reads the values beside the keys, and the launch uses the
+// same 64-thread blocks. At 36,864 queries the value sectors of misses
+// cost what the round trip saves: the wider grid alone gains warm, and the
+// kernel is slower cold than with the value read after the match
+// (PERF.md §6).
 //
 // Contract (kernels/lookup.py::probe_plain): found = any slot of row
 // bucket_ids[i] equals the query, and an EMPTY query never matches; val =
@@ -26,16 +33,16 @@
 
 namespace {
 
-template <bool kRow8>
-__global__ void probe_kernel(const int32_t* __restrict__ bucket_ids,
-                             const int32_t* __restrict__ queries,
-                             const int32_t* __restrict__ pool_keys,
-                             const int32_t* __restrict__ pool_vals,
-                             uint8_t* __restrict__ found,
-                             int32_t* __restrict__ vals, int n, int B) {
+template <int kVec>
+__global__ void __launch_bounds__(repro_torch::kProbeThreads)
+probe_kernel(
+    const int32_t* __restrict__ bucket_ids,
+    const int32_t* __restrict__ queries, const int32_t* __restrict__ pool_keys,
+    const int32_t* __restrict__ pool_vals, uint8_t* __restrict__ found,
+    int32_t* __restrict__ vals, int n, int B) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  repro_torch::probe_row<kRow8>(pool_keys, pool_vals, __ldg(bucket_ids + i),
+  repro_torch::probe_row<kVec>(pool_keys, pool_vals, __ldg(bucket_ids + i),
                                 B, __ldg(queries + i), found + i, vals + i);
 }
 
@@ -48,8 +55,8 @@ extern "C" int probe_launch(const void* bucket_ids, const void* queries,
                             void* found, void* vals, int n, int B,
                             void* stream) {
   if (n <= 0) return 0;
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (n + repro_torch::kProbeThreads - 1) /
+                     repro_torch::kProbeThreads;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const int32_t*>(bucket_ids);
   const auto* q = static_cast<const int32_t*>(queries);
@@ -57,9 +64,10 @@ extern "C" int probe_launch(const void* bucket_ids, const void* queries,
   const auto* pv = static_cast<const int32_t*>(pool_vals);
   auto* f = static_cast<uint8_t*>(found);
   auto* v = static_cast<int32_t*>(vals);
-  if (repro_torch::rows_of_eight(pk, B))
-    probe_kernel<true><<<blocks, threads, 0, s>>>(b, q, pk, pv, f, v, n, B);
-  else
-    probe_kernel<false><<<blocks, threads, 0, s>>>(b, q, pk, pv, f, v, n, B);
+  repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
+    probe_kernel<decltype(vec)::value>
+        <<<blocks, repro_torch::kProbeThreads, 0, s>>>(b, q, pk, pv, f, v, n,
+                                                       B);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,8 @@ SOURCES = ("fused_probe.cu", "fused_apply.cu", "probe.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+# (source, fn) -> the C entry point with its argument types set
+_entry_points: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -84,13 +85,16 @@ def build_all() -> float:
 def load(source: str, fn: str, argtypes):
     """The C entry point ``fn`` of ``source``'s library, built if needed,
     with its argument types declared (pointers and the stream as
-    ``c_void_p``, integers as ``c_int``); it returns a cudaError_t."""
-    if source not in _loaded:
+    ``c_void_p``, integers as ``c_int``); it returns a cudaError_t. The
+    library is opened and the types are set once per ``(source, fn)``;
+    later calls return the same entry point."""
+    f = _entry_points.get((source, fn))
+    if f is None:
         build_all()
-        _loaded[source] = ctypes.CDLL(str(_lib_path(source)))
-    f = getattr(_loaded[source], fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+        f = getattr(ctypes.CDLL(str(_lib_path(source))), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _entry_points[(source, fn)] = f
     return f
 
 

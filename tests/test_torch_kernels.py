@@ -280,6 +280,104 @@ def test_probe_plain_never_finds_empty_query():
     assert f.tolist() == [False, False] and v.tolist() == [-1, -1]
 
 
+def route(directory, q, dmax):
+    return directory[(hash_np("fmix32", q) >> np.uint32(32 - dmax))
+                     .astype(np.int64)]
+
+
+def slot_case(rng, dmax, P, B, *, empty_frac=0.05, duplicates=False):
+    """Every row filled by keys that route to it, then about a fifth of the
+    slots emptied, so rows have holes. Queries: every live key once (a hit
+    at every slot position), as many keys never placed, and ``empty_frac``
+    of ``EMPTY_KEY`` queries. With ``duplicates``, every third row repeats
+    its first key in its last slot under another value, so only the first
+    matching slot answers right (not for the Pallas ``probe``, which sums
+    the matches)."""
+    directory = (rng.permutation(1 << dmax) % P).astype(np.int32)
+    cand = rng.permutation(np.unique(rng.integers(
+        -2**31 + 1, 2**31, size=4 * P * B, dtype=np.int64))).astype(np.int32)
+    rows = route(directory, cand, dmax)
+    order = np.argsort(rows, kind="stable")
+    r = rows[order]
+    start = np.r_[0, np.nonzero(r[1:] != r[:-1])[0] + 1]
+    rank = np.arange(r.size) - np.repeat(start, np.diff(np.r_[start, r.size]))
+    ok = rank < B
+    pk = np.full((P, B), EMPTY_KEY, np.int32)
+    pk[r[ok], rank[ok]] = cand[order][ok]
+    pv = rng.integers(-2**31, 2**31, size=(P, B),
+                      dtype=np.int64).astype(np.int32)
+    pk[rng.random((P, B)) < 0.2] = EMPTY_KEY
+    if duplicates:
+        pk[::3, B - 1] = pk[::3, 0]
+    live = pk[pk != EMPTY_KEY]
+    missing = cand[order][~ok][: live.size]
+    q = rng.permutation(np.r_[live, missing]).astype(np.int32)
+    q[rng.random(q.size) < empty_frac] = EMPTY_KEY
+    return directory, q, pk, pv
+
+
+def first_slots(bids, q, pk):
+    """The first matching slot of every query that hits its row."""
+    eq = (pk[bids] == q[:, None]) & (q != EMPTY_KEY)[:, None]
+    return eq.argmax(axis=1)[eq.any(axis=1)]
+
+
+@needs_jax
+@pytest.mark.parametrize("B", [4, 8, 32])
+def test_probe_plains_match_jax_at_every_slot(B):
+    """Both plain probes, against which the kernels' in-register pick of
+    the first matching slot is held on the card, equal the JAX kernels on
+    hits at every slot position of rows with holes."""
+    dmax, P = 8, 48
+    rng = np.random.default_rng(B)
+    directory, q, pk, pv = slot_case(rng, dmax, P, B)
+    bids = route(directory, q, dmax)
+    assert set(first_slots(bids, q, pk).tolist()) == set(range(B))
+    jargs = [jnp.asarray(x) for x in (q, pk, pv)]
+    jf, jv = jlookup.fused_probe(jnp.asarray(directory), *jargs, dmax=dmax,
+                                 interpret=True)
+    tf, tv = tlookup.fused_probe_plain(t(directory), t(q), t(pk), t(pv),
+                                       dmax=dmax)
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    jf, jv = jlookup.probe(jnp.asarray(bids), *jargs, interpret=True)
+    rf, rv = tlookup.probe_plain(t(bids), t(q), t(pk), t(pv))
+    np.testing.assert_array_equal(rf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(rv.numpy(), np.asarray(jv))
+    assert 0 < int(tf.sum()) < q.size and torch.equal(tf, rf)
+
+
+def test_build_load_sets_up_each_entry_point_once(monkeypatch):
+    """A kernel wrapper asks ``_build.load`` for its entry point at every
+    launch: the library is opened and the types are set only the first
+    time for each (source, function)."""
+    import ctypes
+    import types
+
+    from repro_torch.kernels import _build
+
+    opened = []
+
+    class FakeLib:
+        def __init__(self, path):
+            opened.append(path)
+
+        def __getattr__(self, name):
+            return types.SimpleNamespace(name=name)
+
+    monkeypatch.setattr(_build, "build_all", lambda: 0.0)
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    monkeypatch.setattr(_build, "_entry_points", {})
+    a = _build.load("probe.cu", "probe_launch", [ctypes.c_int])
+    assert a.argtypes == [ctypes.c_int] and a.restype is ctypes.c_int
+    a.argtypes = None
+    assert _build.load("probe.cu", "probe_launch", [ctypes.c_int]) is a
+    assert a.argtypes is None and len(opened) == 1
+    b = _build.load("fused_probe.cu", "fused_probe_launch", [])
+    assert b is not a and b.name == "fused_probe_launch"
+    assert len(opened) == 2
+
+
 # ---------------------------------------------------------------------------
 # grouped apply: plain version ≡ apply_ref over carried rounds
 
@@ -444,18 +542,57 @@ def test_wrappers_reject_bad_arguments():
 # CUDA kernels ≡ their plain versions (on the card)
 
 
+# cases of the row probe both kernels share (csrc/row_probe.cuh): hits at
+# every slot position of 4-, 8- and 32-slot rows (the vector row path), an
+# 8-slot pool whose keys or values start 4 bytes off a 16-byte boundary
+# (the slot-by-slot path), and half the queries EMPTY; rows hold a key twice
+ROW_CASES = [("slots", 4), ("slots", 8), ("slots", 32), ("keys_off16", 8),
+             ("vals_off16", 8), ("empty", 8)]
+
+
+def at_offset(x, device):
+    """``x`` as a contiguous [R, B] tensor at storage offset 1, so that its
+    base is 4 bytes off a 16-byte boundary."""
+    buf = torch.empty(x.size + 1, dtype=torch.int32, device=device)
+    view = buf[1:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+def row_case(case, B, dmax, P, device):
+    """(directory, bucket ids, queries, pool keys, pool values) of one of
+    ``ROW_CASES`` on ``device``."""
+    rng = np.random.default_rng(B)
+    directory, q, pk, pv = slot_case(
+        rng, dmax, P, B, duplicates=True,
+        empty_frac=0.5 if case == "empty" else 0.05)
+    bids = route(directory, q, dmax)
+    assert set(first_slots(bids, q, pk).tolist()) == set(range(B))
+    pk_t = at_offset(pk, device) if case == "keys_off16" else t(pk, device)
+    pv_t = at_offset(pv, device) if case == "vals_off16" else t(pv, device)
+    return t(directory, device), t(bids, device), t(q, device), pk_t, pv_t
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dmax,P,B,N", [(6, 64, 8, 1000), (10, 700, 4, 333),
-                                        (16, 1 << 14, 8, 1 << 16)])
-def test_cuda_fused_probe_equals_plain(cuda, dmax, P, B, N):
-    rng = np.random.default_rng(N)
-    args = [t(x, cuda) for x in probe_case(rng, dmax, P, B, N)]
+@pytest.mark.parametrize("dmax,P,B,N,case", [
+    (6, 64, 8, 1000, "random"), (10, 700, 4, 333, "random"),
+    (16, 1 << 14, 8, 1 << 16, "random"),
+    *[(12, 1000, B, None, case) for case, B in ROW_CASES]])
+def test_cuda_fused_probe_equals_plain(cuda, dmax, P, B, N, case):
+    if case == "random":
+        rng = np.random.default_rng(N)
+        args = [t(x, cuda) for x in probe_case(rng, dmax, P, B, N)]
+    else:
+        directory, _, q, pk, pv = row_case(case, B, dmax, P, cuda)
+        args = [directory, q, pk, pv]
     before = tlookup.fused_probe.launches
     kf, kv = tlookup.fused_probe(*args, dmax=dmax)
     pf, pv_ = tlookup.fused_probe_plain(*args, dmax=dmax)
     torch.cuda.synchronize()
     assert tlookup.fused_probe.launches == before + 1
     assert torch.equal(kf, pf) and torch.equal(kv, pv_)
+    assert 0 < int(kf.sum()) < args[1].shape[0]
 
 
 @pytest.mark.cuda
@@ -492,17 +629,23 @@ def test_cuda_fused_apply_equals_plain(cuda, dmax, P, B, n, fill, key_hi,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,B,N", [(64, 8, 1000), (700, 4, 333),
-                                   (1 << 14, 8, 1 << 16), (40, 40, 500)])
-def test_cuda_probe_equals_plain(cuda, P, B, N):
-    rng = np.random.default_rng(N + B)
-    args = [t(x, cuda) for x in routed_case(rng, P, B, N)]
+@pytest.mark.parametrize("P,B,N,case", [
+    (64, 8, 1000, "random"), (700, 4, 333, "random"),
+    (1 << 14, 8, 1 << 16, "random"), (40, 40, 500, "random"),
+    *[(1000, B, None, case) for case, B in ROW_CASES]])
+def test_cuda_probe_equals_plain(cuda, P, B, N, case):
+    if case == "random":
+        rng = np.random.default_rng(N + B)
+        args = [t(x, cuda) for x in routed_case(rng, P, B, N)]
+    else:
+        args = row_case(case, B, 12, P, cuda)[1:]
     before = tlookup.probe.launches
     kf, kv = tlookup.probe(*args)
     pf, pv_ = tlookup.probe_plain(*args)
     torch.cuda.synchronize()
     assert tlookup.probe.launches == before + 1
     assert torch.equal(kf, pf) and torch.equal(kv, pv_)
+    assert 0 < int(kf.sum()) < args[1].shape[0]
 
 
 CHUNK = tapply.GROUPED_CHUNK
