@@ -43,7 +43,22 @@ printing one JSON line:
    on the wide path's queries and the launch floor (a one-element add);
    the two probes warm (back to back) and cold (the L2 flushed before each
    launch), each also above the floor timed the same way; each kernel's
-   registers and spills from its ``ptxas -v`` report (no spills).
+   registers and spills from its ``ptxas -v`` report (no spills);
+8. the page-table path: the main geometry with the serving tier's
+   ``(page, length)`` value schema (``repro/serving/kvcache.py``), keys
+   ``(seq << 12) | block`` for 4,096 sequences of 128 blocks preloaded in
+   512-lane inserts, then 256 rounds of one 4,608-key lookup and one
+   512-op write (one sequence evicted, one admitted on its pages, 256
+   ``length`` upserts), every status and payload against an oracle; 32
+   more write transactions timed against a raw table with the same state,
+   stage by stage; then the image restored into 4,096-lane transactions
+   (``grouped_apply``, ``probe``) with every payload checked;
+9. the elastic path: ``replay`` of a ``trace.phased`` fill → stable →
+   drain → maintain → refill trace (2**20-key universe, 512-op steps) on
+   the main geometry with the scenarios' ``ResizePolicy`` pinned to the
+   initial depth, against the streaming oracle, then the same trace
+   without the policy: depth by phase, auto-splits and merges, ms per
+   transaction, the policy's share and its host reads.
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -53,6 +68,7 @@ without the repository beside it, the script fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -82,6 +98,21 @@ PRELOAD = 2**19
 WIDE_SPEC = dict(MAIN_SPEC, n_lanes=4096)
 WIDE_LOOKUPS = 8 * LOOKUPS_PER_ROUND
 WIDE_ROUNDS = 64
+# the page-table path: the serving tier's page table (repro/serving/
+# kvcache.py) on the main geometry — keys (seq << BLOCK_BITS) | block, the
+# (page, length) value schema, 4,096 sequences of 128 blocks = 2**19
+# mappings, pages of 16 tokens; PAGE_TIMED extra write transactions timed
+# against a raw table
+PAGE_SCHEMA = {"page": "int32", "length": "int32"}
+BLOCK_BITS = 12
+PAGE_SEQS = 4096
+PAGE_BLOCKS = 128
+PAGE_TOKENS = 16
+PAGE_TIMED = 32
+# the elastic path: trace.phased over a 2**20-key universe in 512-op steps
+# (maintain runs drain_steps // 2 = 512 steps)
+ELASTIC_TRACE = dict(universe=2**20, fill_steps=1024, stable_steps=128,
+                     drain_steps=1024, refill_steps=256, batch=512)
 
 
 def emit(obj) -> None:
@@ -755,7 +786,7 @@ def wide_path(t_main, oracle: Oracle, absent, rng, dev):
           "depth": int(snap["depth"]), "live_buckets": int(snap["live"].sum()),
           "size": len(oracle.d), "launches_restore": restore_launches,
           "launches_mixed": mixed_launches, "ok": True})
-    return tw, launches
+    return tw, launches, image.n_items / restore_s
 
 
 # ---------------------------------------------------------------------------
@@ -1160,6 +1191,492 @@ def kernel_times(t, tw, rng, dev, launches, checks):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the page-table path — a value schema at full size
+
+
+class PageOracle:
+    """The page table's expected content: ``(seq << BLOCK_BITS) | block`` →
+    (page, length) for every block of every admitted, unevicted sequence,
+    as arrays over (sequence, block)."""
+
+    def __init__(self, n_rows: int, rng):
+        self.rng = rng
+        self.mapped = np.zeros(n_rows, bool)
+        self.page = np.zeros((n_rows, PAGE_BLOCKS), np.int32)
+        self.length = np.zeros((n_rows, PAGE_BLOCKS), np.int32)
+
+    def admit(self, seqs, pages):
+        """Map every block of ``seqs`` to ``pages`` [len(seqs), blocks]:
+        full pages but the last, which holds 1..PAGE_TOKENS tokens."""
+        self.mapped[seqs] = True
+        self.page[seqs] = pages
+        self.length[seqs] = PAGE_TOKENS
+        self.length[seqs, -1] = self.rng.integers(1, PAGE_TOKENS + 1,
+                                                  size=len(seqs))
+
+    def expect(self, keys):
+        """(found, page, length) a lookup of ``keys`` must return."""
+        seq, block = keys >> BLOCK_BITS, keys & ((1 << BLOCK_BITS) - 1)
+        found = self.mapped[seq]
+        return (found, np.where(found, self.page[seq, block], 0),
+                np.where(found, self.length[seq, block], 0))
+
+    def live_keys(self):
+        seqs = np.nonzero(self.mapped)[0]
+        return page_keys(seqs)
+
+
+def page_keys(seqs):
+    """Every block's key of ``seqs``, sequence by sequence."""
+    return ((np.asarray(seqs, np.int64)[:, None] << BLOCK_BITS)
+            | np.arange(PAGE_BLOCKS)).reshape(-1).astype(np.int32)
+
+
+def page_rounds(rng, po: PageOracle, active: list, next_seq: int, rounds,
+                n_lookups):
+    """Host-side rounds of the serving tier's page-table traffic and what
+    each must return: a lookup of ``n_lookups`` keys (half blocks of live
+    sequences, half of sequences never admitted), then one write
+    transaction — the blocks of one evicted sequence deleted, the blocks of
+    one admitted sequence inserted on the freed pages, and ``length``
+    upserts (same page) of live blocks for the other lanes; lanes
+    shuffled. Returns (rounds, next_seq)."""
+    n = MAIN_SPEC["n_lanes"]
+    n_upd = n - 2 * PAGE_BLOCKS
+    never = np.arange(len(po.mapped) // 2, len(po.mapped))
+    out = []
+    for _ in range(rounds):
+        live = np.asarray(active)
+        h = n_lookups // 2
+        q = np.r_[(rng.choice(live, h).astype(np.int64) << BLOCK_BITS)
+                  | rng.integers(0, PAGE_BLOCKS, h),
+                  (rng.choice(never, h).astype(np.int64) << BLOCK_BITS)
+                  | rng.integers(0, PAGE_BLOCKS, h)]
+        q = rng.permutation(q).astype(np.int32)
+        want_q = po.expect(q)
+        victim = active.pop(int(rng.integers(len(active))))
+        pages = po.page[victim].copy()
+        po.mapped[victim] = False
+        new = next_seq
+        next_seq += 1
+        po.admit([new], pages[None])
+        # distinct live blocks of the other sequences: one write per key
+        flat = rng.choice(len(active) * PAGE_BLOCKS, n_upd, replace=False)
+        upd_seq = np.asarray(active)[flat // PAGE_BLOCKS]
+        upd_blk = flat % PAGE_BLOCKS
+        po.length[upd_seq, upd_blk] = rng.integers(1, PAGE_TOKENS + 1,
+                                                   size=n_upd)
+        active.append(new)
+        keys = np.r_[page_keys([victim]), page_keys([new]),
+                     (upd_seq.astype(np.int64) << BLOCK_BITS) | upd_blk]
+        kinds = np.r_[np.full(PAGE_BLOCKS, 2), np.full(PAGE_BLOCKS, 1),
+                      np.full(n_upd, 1)]
+        status = np.r_[np.ones(2 * PAGE_BLOCKS), np.zeros(n_upd)]
+        perm = rng.permutation(len(keys))
+        keys, kinds, status = (keys[perm].astype(np.int32),
+                               kinds[perm].astype(np.int32),
+                               status[perm].astype(np.int8))
+        _, page, length = po.expect(keys)
+        out.append((q, want_q, kinds, keys, page, length, status))
+    return out, next_seq
+
+
+def check_payloads(found, vals, want, what):
+    check(np.array_equal(found.cpu().numpy(), want[0]), f"{what}: found")
+    for name, w in zip(("page", "length"), want[1:]):
+        check(np.array_equal(vals[name].cpu().numpy(), w),
+              f"{what}: {name}")
+
+
+def run_page_rounds(t, rounds, dev):
+    """Drive the page-table rounds (a lookup, then a write transaction) and
+    check every status and payload. Returns (table, seconds)."""
+    dev_rounds = [tuple(torch.tensor(x, device=dev) for x in
+                        (r[0], r[2], r[3], r[4], r[5])) for r in rounds]
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for q, kinds, keys, page, length in dev_rounds:
+        outs.append(t.lookup(q))
+        t, res = t.apply(kinds, keys, {"page": page, "length": length})
+        outs.append(res.status)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for r, (_, want_q, *_, status) in enumerate(rounds):
+        check_payloads(*outs[2 * r], want_q, f"page round {r} lookup")
+        check(np.array_equal(outs[2 * r + 1].cpu().numpy(), status),
+              f"page round {r} statuses")
+    return t, secs
+
+
+SCHEMA_STAGES = ("pre_lookup", "allocation", "kernel_apply", "scatter",
+                 "post_lookup", "reconciliation")
+
+
+def timed_schema_writes(ts, rounds, dev):
+    """The same write transactions on the page table and on a raw table
+    holding the same state (``page`` as its value), in turns: host ms per
+    transaction of each (a synchronize around every call), the schema
+    transaction's stages on the stream (CUDA events around the facade's
+    stage functions), its kernel launches, and the transactions that took
+    the ``ST_FULL`` slow path. Both must return the expected statuses.
+    Returns (page table, report)."""
+    from repro_torch import table_api
+    from repro_torch.core import table as T
+    from repro_torch.table_api import Table, TableSpec
+
+    raw = Table.from_state(TableSpec(**MAIN_SPEC, backend="cuda"),
+                           T.from_numpy_state(T.to_numpy(ts.state), dev),
+                           ts.seq)
+    stage_fns = {"allocation": "_alloc_handles", "kernel_apply": "_raw_apply",
+                 "scatter": "_write_payloads",
+                 "reconciliation": "_reconcile_handles"}
+    originals = {f: getattr(table_api, f) for f in
+                 list(stage_fns.values()) + ["_raw_lookup"]}
+    events = []
+
+    def timed(name, fn):
+        def run(*args):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*args)
+            e1.record()
+            events.append((name, e0, e1))
+            return out
+        return run
+
+    lookups = []
+
+    def timed_lookup(*args):
+        lookups.append(None)
+        name = "pre_lookup" if len(lookups) % 2 else "post_lookup"
+        return timed(name, originals["_raw_lookup"])(*args)
+
+    slow = {"raw": 0, "schema": 0}
+    side = ["raw"]
+    apply_batch = T.apply_batch
+
+    def counted_apply_batch(*args):
+        slow[side[0]] += 1
+        return apply_batch(*args)
+
+    counters = kernel_counts()
+    secs = {"raw": 0.0, "schema": 0.0}
+    per_txn = []
+    T.apply_batch = counted_apply_batch
+    try:
+        for r, (_, _, kinds, keys, page, length, status) in enumerate(rounds):
+            args = [torch.tensor(x, device=dev) for x in (kinds, keys, page,
+                                                          length)]
+            torch.cuda.synchronize()
+            side[0] = "raw"
+            t0 = time.perf_counter()
+            raw, res_raw = raw.apply(args[0], args[1], args[2])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            before = {k: f.launches for k, f in counters.items()}
+            side[0] = "schema"
+            for name, fn in stage_fns.items():
+                setattr(table_api, fn, timed(name, originals[fn]))
+            table_api._raw_lookup = timed_lookup
+            try:
+                ts, res = ts.apply(args[0], args[1], {"page": args[2],
+                                                      "length": args[3]})
+                torch.cuda.synchronize()
+            finally:
+                for fn, orig in originals.items():
+                    setattr(table_api, fn, orig)
+            t2 = time.perf_counter()
+            secs["raw"] += t1 - t0
+            secs["schema"] += t2 - t1
+            per_txn.append({k: f.launches - before[k]
+                            for k, f in counters.items()})
+            for res_, what in ((res_raw, "raw"), (res, "schema")):
+                check(np.array_equal(res_.status.cpu().numpy(), status),
+                      f"timed {what} round {r} statuses")
+    finally:
+        T.apply_batch = apply_batch
+    torch.cuda.synchronize()
+    stages = {k: 0.0 for k in SCHEMA_STAGES}
+    for name, e0, e1 in events:
+        stages[name] += e0.elapsed_time(e1)
+    n = len(rounds)
+    launches = {k: [p[k] for p in per_txn] for k in counters}
+    check(all(x == 2 for x in launches["fused_probe"])
+          and all(x == 1 for x in launches["fused_apply"])
+          and not any(launches["probe"] + launches["grouped_apply"]),
+          f"launches per schema transaction {launches}")
+    return ts, {
+        "transactions": n,
+        "ms_per_transaction_raw": secs["raw"] / n * 1e3,
+        "ms_per_transaction_schema": secs["schema"] / n * 1e3,
+        "stage_ms_per_transaction": {k: v / n for k, v in stages.items()},
+        "launches_per_schema_transaction": {
+            k: sum(v) / n for k, v in launches.items()},
+        "slow_path_transactions_raw": slow["raw"],
+        "slow_path_transactions_schema": slow["schema"]}
+
+
+def schema_path(rng, dev, raw_restore_rate):
+    """The serving tier's page table at full size: the main geometry with
+    the ``(page, length)`` value schema, 2**19 block mappings preloaded in
+    512-lane inserts, the 90/10 rounds of ``page_rounds`` against the
+    oracle, the schema transaction timed against a raw one, then a save and
+    a restore into 4,096-lane transactions (``grouped_apply``, ``probe``)
+    with every payload checked."""
+    from repro_torch.core import table as T
+    from repro_torch.core.invariants import check_invariants
+    from repro_torch.table_api import Table, TableSpec
+
+    spec = TableSpec(**MAIN_SPEC, backend="cuda", value_schema=PAGE_SCHEMA)
+    cfg = spec.table_config()
+    n_rows = 2 * (PAGE_SEQS + ROUNDS + PAGE_TIMED)
+    po = PageOracle(n_rows, rng)
+    active = list(range(PAGE_SEQS))
+    po.admit(active, rng.permutation(PAGE_SEQS * PAGE_BLOCKS).astype(
+        np.int32).reshape(PAGE_SEQS, PAGE_BLOCKS))
+    pre = po.live_keys()
+    _, pre_page, pre_len = po.expect(pre)
+    rounds, next_seq = page_rounds(rng, po, active, PAGE_SEQS, ROUNDS,
+                                   LOOKUPS_PER_ROUND)
+    timed_rounds, _ = page_rounds(rng, po, active, next_seq, PAGE_TIMED,
+                                  LOOKUPS_PER_ROUND)
+
+    t = Table.create(spec, device=dev)
+    check(t.plan().backend == "cuda" and t.plan().fused_apply
+          and t.plan().fused_lookup, "page table plan")
+    zero_counts()
+    t0 = time.perf_counter()
+    t, res = t.insert(torch.tensor(pre, device=dev), {
+        "page": torch.tensor(pre_page, device=dev),
+        "length": torch.tensor(pre_len, device=dev)})
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(bool((res.status == T.TRUE).all()), "page preload statuses")
+    t, t_mix = run_page_rounds(t, rounds, dev)
+    launches = read_counts()
+    t, timing = timed_schema_writes(t, timed_rounds, dev)
+
+    want = po.live_keys()
+    size = int(t.size())
+    snap = T.to_numpy(t.state)
+    check(not bool(snap["error"]), "page table error flag")
+    check_invariants(cfg, snap)
+    check(size == want.size, f"page table size {size} != {want.size}")
+    check(int(t.slab_live.sum()) == size + 1, "slab_live != size + 1")
+    check_payloads(*t.lookup(torch.tensor(want, device=dev)),
+                   po.expect(want), "page table content")
+    check(launches["fused_probe"] > 0 and launches["fused_apply"] > 0
+          and launches["probe"] == launches["grouped_apply"] == 0,
+          f"page table launches {launches}")
+
+    # the wide restore: the image into 4,096-lane transactions
+    wspec = TableSpec(**WIDE_SPEC, backend="cuda", value_schema=PAGE_SCHEMA)
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path = t.save(str(out_dir / "pages.npz"))
+    save_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    tw = Table.restore(path, wspec, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_launches = read_counts()
+    check(not bool(tw.state.error), "restored page table error flag")
+    check_invariants(wspec.table_config(), tw.state)
+    check(int(tw.size()) == size and int(tw.slab_live.sum()) == size + 1,
+          "restored page table size / slab_live")
+    check_payloads(*tw.lookup(torch.tensor(want, device=dev)),
+                   po.expect(want), "restored page table content")
+    check(restore_launches["grouped_apply"] > 0
+          and restore_launches["probe"] > 0
+          and restore_launches["fused_probe"]
+          == restore_launches["fused_apply"] == 0,
+          f"page table restore launches {restore_launches}")
+    n_look = ROUNDS * LOOKUPS_PER_ROUND
+    n_write = ROUNDS * MAIN_SPEC["n_lanes"]
+    emit({"phase": "schema_path", "spec": MAIN_SPEC,
+          "value_schema": [list(f) for f in spec.value_schema],
+          "slab_rows": spec.slab_rows, "sequences": PAGE_SEQS,
+          "blocks_per_sequence": PAGE_BLOCKS, "preload_keys": int(pre.size),
+          "preload_s": t_pre, "preload_inserts_per_s": pre.size / t_pre,
+          "mixed_rounds": ROUNDS, "lookups": n_look, "writes": n_write,
+          "mixed_s": t_mix, "mixed_ops_per_s": (n_look + n_write) / t_mix,
+          "status_mismatches": 0, "payload_mismatches": 0,
+          "content_mismatches": 0, "size": size,
+          "slab_live": int(t.slab_live.sum()), "depth": int(t.depth()),
+          "launches": launches, **timing, "save_s": save_s,
+          "restore_s": restore_s, "restore_items_per_s": size / restore_s,
+          "raw_restore_items_per_s": raw_restore_rate,
+          "restore_transactions": tw.seq,
+          "launches_restore": restore_launches,
+          "restored_payloads_equal_oracle": True, "ok": True})
+    return t
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the elastic path — a fill → drain → refill trace with the policy
+
+
+# policy calls traced with torch.profiler: eight in the fill, eight in the
+# drain (one call per step: a step's mutations fit one 512-lane transaction)
+PROFILED_POLICY_CALLS = {"fill": range(200, 208), "drain": range(1600, 1608)}
+
+
+def elastic_replay(spec, trace, dev):
+    """``replay`` of ``trace`` on a fresh ``spec`` table, with host timers
+    (a synchronize around each call) on its write transactions and on the
+    policy's passes, counts of the merge pass's host reads and of the
+    transactions that took the ``ST_FULL`` slow path, and the device
+    kernels of the ``PROFILED_POLICY_CALLS`` (torch.profiler: their count
+    and device time per call, beside the call's wall time)."""
+    from torch.autograd import DeviceType
+
+    from repro_torch import table_api
+    from repro_torch.core import policy
+    from repro_torch.core import table as T
+    from repro_torch.workloads import replay
+
+    traced = {k: {"calls": 0, "device_kernels": 0, "device_ms": 0.0,
+                  "wall_ms": 0.0} for k in PROFILED_POLICY_CALLS}
+
+    def profiled(fn):
+        def run(*args):
+            phase = next((k for k, r in PROFILED_POLICY_CALLS.items()
+                          if acc["policy"][0] in r), None)
+            if phase is None:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out = fn(*args)
+                torch.cuda.synchronize()
+            row = traced[phase]
+            row["wall_ms"] += (time.perf_counter() - t0) * 1e3
+            row["calls"] += 1
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    row["device_kernels"] += 1
+                    row["device_ms"] += e.time_range.elapsed_us() / 1e3
+            return out
+        return run
+
+    acc = {k: [0, 0.0] for k in ("transaction", "policy", "split_pass",
+                                 "merge_pass")}
+    reads = [0]
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            acc[name][0] += 1
+            acc[name][1] += time.perf_counter() - t0
+            return out
+        return run
+
+    def counted(fn, counter):
+        def run(*args):
+            counter[0] += 1
+            return fn(*args)
+        return run
+
+    slow = [0]
+
+    patches = [(table_api, "_raw_apply", timed("transaction",
+                                                table_api._raw_apply)),
+               (policy, "apply_policy", timed("policy", profiled(
+                   policy.apply_policy))),
+               (policy, "_policy_split", timed("split_pass",
+                                               policy._policy_split)),
+               (policy, "_policy_merge", timed("merge_pass",
+                                               policy._policy_merge)),
+               (policy, "_merge_candidate", counted(policy._merge_candidate,
+                                                    reads)),
+               (T, "apply_batch", counted(T.apply_batch, slow))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rep = replay(spec, trace, device=dev, oracle="streaming",
+                     raise_on_mismatch=False)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(rep["status_mismatches"] == 0 and rep["content_mismatches"] == 0,
+          f"elastic replay mismatches: {rep['mismatch_examples']}")
+    check(rep["ok"], "elastic replay error flag")
+    check(launches["fused_probe"] > 0 and launches["fused_apply"] > 0
+          and launches["probe"] == launches["grouped_apply"] == 0,
+          f"elastic launches {launches}")
+    n = acc["transaction"][0]
+    times = {f"ms_per_{k}": (v[1] / v[0] * 1e3 if v[0] else 0.0)
+             for k, v in acc.items()}
+    per_call = {k: {m: v / max(row["calls"], 1) for m, v in row.items()
+                    if m != "calls"} for k, row in traced.items()}
+    return rep, {"wall_s": wall, "transactions": n, **times,
+                 "policy_share_of_transaction": (acc["policy"][1]
+                                                 / acc["transaction"][1]),
+                 "host_reads_per_transaction": reads[0] / n,
+                 "slow_path_transactions": slow[0],
+                 "traced_policy_call": per_call, "launches": launches}
+
+
+def depth_by_phase(rep):
+    """{phase: [depth at its start, min, max, at its end]} from the replay's
+    per-step depth trajectory."""
+    traj, out, i = rep["depth"]["trajectory"], {}, 0
+    for row in rep["phases"]:
+        seg = traj[i:i + row["steps"] + 1]
+        out[row["name"]] = [seg[0], min(seg), max(seg), seg[-1]]
+        i += row["steps"]
+    return out
+
+
+def elastic_path(seed, dev):
+    """The scenarios' ``POLICY`` on the main geometry, pinned to its initial
+    depth, driven by ``replay`` through ``trace.phased`` (fill → stable →
+    drain → maintain → refill) against the streaming oracle; then the same
+    trace on the same geometry without the policy."""
+    from repro_torch.table_api import TableSpec
+    from repro_torch.workloads.scenarios import POLICY
+    from repro_torch.workloads.trace import phased
+
+    policy = dataclasses.replace(POLICY, min_depth=MAIN_SPEC["initial_depth"])
+    trace = phased("elastic", seed=seed, **ELASTIC_TRACE)
+    rep, info = elastic_replay(
+        TableSpec(**MAIN_SPEC, backend="cuda", resize_policy=policy), trace,
+        dev)
+    check(rep["policy"]["splits"] > 0 and rep["policy"]["merges"] > 0,
+          f"elastic policy actions {rep['policy']}")
+    rep0, info0 = elastic_replay(TableSpec(**MAIN_SPEC, backend="cuda"),
+                                 trace, dev)
+    emit({"phase": "elastic_path", "spec": MAIN_SPEC,
+          "policy": dataclasses.asdict(policy), "trace": ELASTIC_TRACE,
+          "phases": [[p.name, p.steps, p.mix] for p in trace.phases],
+          "steps": rep["steps"], "mutations": rep["mutations"],
+          "reads": rep["reads"], "status_mismatches": 0,
+          "content_mismatches": 0, "auto_splits": rep["policy"]["splits"],
+          "auto_merges": rep["policy"]["merges"],
+          "depth": {k: v for k, v in rep["depth"].items()
+                    if k != "trajectory"},
+          "depth_by_phase": depth_by_phase(rep),
+          "with_policy": info,
+          "without_policy": {**info0, "depth": {
+              k: v for k, v in rep0["depth"].items() if k != "trajectory"},
+              "depth_by_phase": depth_by_phase(rep0)},
+          "ok": True})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1177,12 +1694,15 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     checks = kernel_checks(rng, dev)
     t, launches, oracle, absent = main_path(rng, dev)
-    tw, wide_launches = wide_path(t, oracle, absent, rng, dev)
+    tw, wide_launches, raw_restore_rate = wide_path(t, oracle, absent, rng,
+                                                    dev)
     launches.update({k: wide_launches[k] for k in ("probe", "grouped_apply")})
     plan_parity(t, rng, dev, MAIN_SPEC, 64, "main")
     plan_parity(tw, rng, dev, WIDE_SPEC, 16, "wide")
     t = profile_rounds(t, rng, dev)
     kernels = kernel_times(t, tw, rng, dev, launches, checks)
+    schema_path(rng, dev, raw_restore_rate)
+    elastic_path(args.seed, dev)
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

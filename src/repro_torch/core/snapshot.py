@@ -13,19 +13,27 @@ canonical, layout-independent :class:`TableImage`:
 * **frozen/tombstone lanes normalized** — only live buckets' occupied
   slots are extracted; frozen flags, retired parents and the write-trash
   row never reach the image;
+* **payloads resolved** — in value-schema mode the i32 handle words are
+  dereferenced through the slabs at save time (a gather on the device,
+  then one copy of the items' rows), so the image stores typed per-item
+  payload rows and is independent of handle allocation order and
+  ``slab_capacity``;
 * **a versioned header** — readers are registered per version, so an
   image from a *newer* writer fails with a clear error.
 
 Restore replays the image through the ordinary combining transaction:
 :func:`restore_from_image` builds a fresh table for the **target** spec —
 which may differ from the save spec in ``dmax``, ``pool_size``,
-``n_lanes`` or backend — and inserts the items through ``Table.apply``, so
-every item re-routes through the directory math and the reactive splits.
-Infeasible targets (a ``dmax`` too shallow for the image's densest
-hash-prefix group, too few slots, a value schema the port does not hold)
-are rejected on the host before any device work.
+``n_lanes``, ``slab_capacity`` or backend — and inserts the items through
+``Table.apply``, so every item re-routes through the directory math and
+the reactive splits. Infeasible targets (a ``dmax`` too shallow for the
+image's densest hash-prefix group, too few slots or slab rows, a value
+schema that differs from the image's) are rejected on the host before any
+device work.
 
-Policy counters survive the round trip through the header. Per-lane
+Policy counters survive the round trip through the header: the elastic
+policy is detached during the load (the replay's splits must not count as
+its actions) and the image's counters are reinstalled after it. Per-lane
 transaction state (``applied_seq``, ``last_status``) is session state, not
 content. The save-side error flag is recorded as provenance but not
 re-imposed.
@@ -36,7 +44,7 @@ import dataclasses
 import io
 import json
 import os
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -53,8 +61,7 @@ class TableImage:
     """A canonical, layout-independent table image (host arrays).
 
     ``values`` is ``i32[n]`` for raw values, or ``{field: [n, *shape]}``
-    for an image the JAX package saved with a value schema (which the port
-    reads but cannot restore). ``header`` carries the versioned metadata
+    in value-schema mode. ``header`` carries the versioned metadata
     written to disk (see :func:`extract_image`)."""
 
     header: Dict[str, Any]
@@ -74,23 +81,43 @@ class TableImage:
 # extraction (save side)
 
 
+def _schema_header(spec: TableSpec):
+    if spec.value_schema is None:
+        return None
+    return [[f.name, f.dtype, list(f.shape)] for f in spec.value_schema]
+
+
+def _schema_key(schema) -> Optional[tuple]:
+    """Hashable normal form of a schema header (or a spec's value_schema)."""
+    if schema is None:
+        return None
+    return tuple((str(n), str(d), tuple(int(x) for x in s))
+                 for n, d, s in schema)
+
+
 def extract_image(table) -> TableImage:
-    """Canonical image of a ``Table`` handle: one host copy of the pools,
-    then mask live buckets' occupied slots and sort by (full hash, key)."""
+    """Canonical image of a ``Table`` handle: live buckets' occupied slots
+    masked on the device, their keys, words and (schema mode) payload rows
+    copied to the host, then sorted by (full hash, key)."""
     spec = table.spec
     st = table.state
-    keys, vals, live = (t.cpu().numpy() for t in (st.keys, st.vals,
-                                                   st.live))
-    slot_mask = live[:, None] & (keys != EMPTY_KEY)
-    item_keys = keys[slot_mask].astype(np.int32)
-    item_vals = vals[slot_mask].astype(np.int32)
+    slot_mask = st.live[:, None] & (st.keys != EMPTY_KEY)
+    words = st.vals[slot_mask]
+    item_keys = st.keys[slot_mask].cpu().numpy().astype(np.int32)
     order = np.lexsort((item_keys, hash_np(spec.hash_name, item_keys)))
+    if spec.value_schema is None:
+        values: Union[np.ndarray, Dict[str, np.ndarray]] = (
+            words.cpu().numpy().astype(np.int32)[order])
+    else:
+        h = words.long()
+        values = {name: slab[h].cpu().numpy()[order]
+                  for name, slab in table.slabs.items()}
     header = {
         "format": FORMAT_MAGIC,
         "version": FORMAT_VERSION,
         "n_items": int(item_keys.shape[0]),
         "hash_name": spec.hash_name,
-        "value_schema": None,
+        "value_schema": _schema_header(spec),
         "policy_counts": [int(x) for x in st.policy_counts.cpu().tolist()],
         "error": bool(st.error),
         "saved_spec": {
@@ -101,8 +128,7 @@ def extract_image(table) -> TableImage:
             "pool_size": spec.pool_size,
         },
     }
-    return TableImage(header=header, keys=item_keys[order],
-                      values=item_vals[order])
+    return TableImage(header=header, keys=item_keys[order], values=values)
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +158,17 @@ def set_fault_hook(hook):
 
 
 def save_image(image: TableImage, path: str) -> str:
-    """Write a raw-value ``image`` to ``path`` as a single npz file (atomic
-    rename)."""
+    """Write ``image`` to ``path`` as a single npz file (atomic rename)."""
+    arrays = {"keys": image.keys}
+    if isinstance(image.values, dict):
+        for name, arr in image.values.items():
+            arrays[f"field__{name}"] = arr
+    else:
+        arrays["vals"] = image.values
     buf = io.BytesIO()
     np.savez(buf, __header__=np.frombuffer(
         json.dumps(image.header, sort_keys=True).encode(), np.uint8),
-        keys=image.keys, vals=image.values)
+        **arrays)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(buf.getvalue())
@@ -193,18 +224,21 @@ def load_image(path: str) -> TableImage:
 def check_restorable(image: TableImage, spec: TableSpec) -> None:
     """Raise ``ValueError`` when ``spec`` cannot hold ``image``.
 
-    Exact checks: the value schema must match (the port's specs hold raw
-    values, so an image with a schema is refused); the densest group of
-    keys sharing all of the target's ``dmax`` top hash bits must fit one
-    bucket — a larger group would OVERFLOW however the table splits; and
-    the items must fit the pool's slots. Pool exhaustion depends on the
-    split trajectory and is checked after the replay instead."""
-    if image.schema is not None:
+    Exact checks: the value schema must match field for field (name, dtype
+    and shape); the densest group of keys sharing all of the target's
+    ``dmax`` top hash bits must fit one bucket — a larger group would
+    OVERFLOW however the table splits; in schema mode the slab store must
+    have a row per item; and the items must fit the pool's slots. Pool
+    exhaustion depends on the split trajectory and is checked after the
+    replay instead."""
+    want = _schema_key(_schema_header(spec))
+    have = _schema_key(image.schema)
+    if want != have:
         raise ValueError(
             "value schema mismatch: image has "
-            f"{[str(f[0]) for f in image.schema]}, restore spec has None; "
-            "save and restore specs must declare the same fields (dtype "
-            "and shape included)")
+            f"{have and [f[0] for f in have]}, restore spec has "
+            f"{want and [f[0] for f in want]}; save and restore specs must "
+            "declare the same fields (dtype and shape included)")
     if image.n_items == 0:
         return
 
@@ -229,6 +263,12 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
             f"placement={spec.placement!r} (image has {image.n_items} "
             "items)")
 
+    if spec.value_schema is not None and image.n_items > spec.slab_rows:
+        raise ValueError(
+            f"slab store too small: image has {image.n_items} items, "
+            f"restore spec provides slab_rows={spec.slab_rows}; raise "
+            "slab_capacity (or pool_size*bucket_size)")
+
     capacity = spec.pool_size * spec.bucket_size
     if image.n_items > capacity:
         raise ValueError(
@@ -243,18 +283,25 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
 
 def restore_from_image(image: TableImage, spec: TableSpec, device=None):
     """Build a fresh ``Table`` for ``spec`` on ``device`` (default
-    ``"cuda"``) holding ``image``'s content: the items go in as inserts
-    through ``Table.apply``, one ``n_lanes``-wide transaction per chunk,
-    and the image's policy counters are reinstalled."""
+    ``"cuda"``) holding ``image``'s content: the items and their payloads
+    go in as inserts through ``Table.apply``, one ``n_lanes``-wide
+    transaction per chunk, with the elastic policy detached; then the
+    policy is reattached with the image's counters."""
     from repro_torch.table_api import Table  # table_api imports this module
 
     check_restorable(image, spec)
-    table = Table.create(spec, device)
+    load_spec = (dataclasses.replace(spec, resize_policy=None)
+                 if spec.resize_policy is not None else spec)
+    table = Table.create(load_spec, device)
     n = image.n_items
     if n:
         dev = table.device
         keys = torch.tensor(image.keys, dtype=torch.int32, device=dev)
-        values = torch.tensor(image.values, dtype=torch.int32, device=dev)
+        if isinstance(image.values, dict):
+            values = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+                      for name, arr in image.values.items()}
+        else:
+            values = torch.tensor(image.values, dtype=torch.int32, device=dev)
         table, res = table.insert(keys, values)
         if bool(res.error):
             seen = torch.unique(res.status).tolist()
@@ -264,7 +311,9 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
                 "(bucket-pool rows) or dmax and retry")
     counts = torch.tensor(image.header.get("policy_counts", [0, 0]),
                           dtype=torch.int32, device=table.device)
-    return table._replace(state=table.state._replace(policy_counts=counts))
+    spec.plan(table.device.type)
+    return table._replace(spec=spec, state=table.state._replace(
+        policy_counts=counts))
 
 
 # ---------------------------------------------------------------------------

@@ -2,22 +2,95 @@
 
 ``TableSpec`` has the field names of the JAX package's spec
 (``repro/core/spec.py``). This port serves local placement with raw i32
-values and the paper-reactive resize rule, and saves and restores tables
-through the JAX package's image format (``core/snapshot.py``);
-``placement="sharded"``, a ``value_schema``, a ``resize_policy`` and
-measured tile autotuning raise ``NotImplementedError`` until they are
-ported. ``backend`` is ``"auto"``, ``"plain"`` or ``"cuda"`` (see
-``kernels/plan.py``); the spec resolves its kernel plan once per device
-type, when the first table on it is built, and every geometry has one.
+values or a **value schema**, the paper-reactive resize rule or an elastic
+:class:`~repro_torch.core.policy.ResizePolicy`, and saves and restores
+tables through the JAX package's image format (``core/snapshot.py``);
+``placement="sharded"`` and measured tile autotuning raise
+``NotImplementedError`` until they are ported. ``backend`` is ``"auto"``,
+``"plain"`` or ``"cuda"`` (see ``kernels/plan.py``); the spec resolves its
+kernel plan once per device type, when the first table on it is built, and
+every geometry has one.
+
+Value schemas
+-------------
+A schema is declared as a mapping ``name -> dtype`` or ``name -> (dtype,
+per-item shape)``::
+
+    schema = {"page": "int32", "score": (torch.float32, (4,))}
+
+and is normalized to a sorted tuple of :class:`ValueField` whose dtypes are
+numpy dtype names (``"int32"``, ``"float32"``, ...), the names the JAX
+package writes, so that image headers match. With a schema the table
+stores payloads in a struct-of-slabs side store: one tensor of shape
+``[slab_rows + 1, *field_shape]`` per field, indexed by a stable handle
+that travels in the table's i32 value word. Row ``slab_rows`` is the
+write-trash row.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
 
 from repro_torch.core import table as T
+from repro_torch.core.policy import ResizePolicy
 
 PLACEMENTS = ("local", "sharded")
+
+
+class ValueField(NamedTuple):
+    """One leaf of a value schema (hashable normal form)."""
+
+    name: str
+    dtype: str            # numpy dtype name, e.g. "int32"
+    shape: Tuple[int, ...] = ()   # per-item shape (() = scalar payload)
+
+
+def _dtype_name(dtype) -> str:
+    """The numpy name of ``dtype`` (a string, a numpy dtype or a
+    ``torch.dtype``); a torch dtype without a numpy counterpart raises."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype.name
+    return np.dtype(dtype).name
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The ``torch.dtype`` of a schema field's numpy dtype name."""
+    return torch.from_numpy(np.zeros(0, name)).dtype
+
+
+def normalize_schema(schema: Any) -> Optional[Tuple[ValueField, ...]]:
+    """Normalize a user schema to a sorted, hashable ``ValueField`` tuple.
+
+    Accepts ``None`` (raw i32 value mode), a mapping ``name -> spec``, or a
+    sequence of ``ValueField``/tuples. A field spec may be a dtype, a
+    ``(dtype, shape)`` pair, or anything with ``.dtype``/``.shape``."""
+    if schema is None:
+        return None
+    if isinstance(schema, Mapping):
+        items = schema.items()
+    else:
+        items = [(f[0], (f[1], tuple(f[2]) if len(f) > 2 else ()))
+                 for f in schema]
+    fields = []
+    for name, spec in items:
+        if isinstance(spec, tuple):
+            dtype, shape = spec[0], tuple(spec[1])
+        elif isinstance(spec, (str, type, np.dtype, torch.dtype)):
+            dtype, shape = spec, ()
+        else:       # an array-like description: .dtype and .shape
+            dtype, shape = spec.dtype, tuple(spec.shape)
+        fields.append(ValueField(str(name), _dtype_name(dtype),
+                                 tuple(int(s) for s in shape)))
+    if not fields:
+        return None
+    out = tuple(sorted(fields))
+    names = [f.name for f in out]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate schema fields: {names}")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,25 +118,35 @@ class TableSpec:
     backend: str = "auto"        # "auto" | "plain" | "cuda"
     autotune: str = "off"        # "off" (the tile autotuner is not ported)
 
-    # --- value schema and elastic policy (not ported yet) ---------------
-    value_schema: Optional[Tuple[Any, ...]] = None
-    slab_capacity: int = 0
-    resize_policy: Optional[Any] = None
+    # --- value schema ----------------------------------------------------
+    value_schema: Optional[Tuple[ValueField, ...]] = None
+    slab_capacity: int = 0       # 0 → pool_size * bucket_size (max items)
+
+    # --- elastic resize policy (core/policy.py; None = paper-reactive) ----
+    resize_policy: Optional[ResizePolicy] = None
 
     def __post_init__(self):
         if self.placement not in PLACEMENTS:
             raise ValueError(f"placement {self.placement!r} not in "
                              f"{PLACEMENTS}")
         for name, supported in (("placement", self.placement == "local"),
-                                ("value_schema", self.value_schema is None),
-                                ("slab_capacity", self.slab_capacity == 0),
-                                ("resize_policy", self.resize_policy is None),
                                 ("autotune", self.autotune == "off")):
             if not supported:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported to the "
-                    "PyTorch package yet (local placement, raw i32 values, "
-                    "no resize policy or autotuning)")
+                    "PyTorch package yet (local placement, no measured "
+                    "autotuning)")
+        if self.resize_policy is not None:
+            if not isinstance(self.resize_policy, ResizePolicy):
+                raise TypeError(f"resize_policy must be a ResizePolicy, "
+                                f"not {type(self.resize_policy).__name__}")
+            # the bucket-size-dependent checks: the policy alone cannot
+            # see bucket_size
+            self.resize_policy.validate(self.bucket_size, self.dmax)
+        object.__setattr__(self, "value_schema",
+                           normalize_schema(self.value_schema))
+        if self.slab_capacity and self.value_schema is None:
+            raise ValueError("slab_capacity given without a value_schema")
         # construction-time validation of the core knobs and the backend
         self.table_config()
         from repro_torch.kernels.plan import resolve_plan
@@ -77,6 +160,19 @@ class TableSpec:
             from repro_torch.kernels.plan import resolve_plan
             self._plans[device_type] = resolve_plan(self, device_type)
         return self._plans[device_type]
+
+    @property
+    def slab_rows(self) -> int:
+        """Payload rows of the side store (0 in raw value mode)."""
+        if self.value_schema is None:
+            return 0
+        return self.slab_capacity or self.pool_size * self.bucket_size
+
+    def field_dtypes(self) -> dict:
+        """``{field name: torch.dtype}`` of the value schema."""
+        if self.value_schema is None:
+            raise ValueError("the spec has no value_schema")
+        return {f.name: torch_dtype(f.dtype) for f in self.value_schema}
 
     def plan_batch(self, m: int) -> Tuple[int, int]:
         """``(n_chunks, padded_len)`` the facade dispatches for an

@@ -129,8 +129,7 @@ def test_spec_fields_match_jax_spec():
 
 
 def test_unported_options_raise():
-    for kw in (dict(placement="sharded"), dict(value_schema=(("v", "int32"),)),
-               dict(resize_policy=object()), dict(autotune="measured")):
+    for kw in (dict(placement="sharded"), dict(autotune="measured")):
         with pytest.raises(NotImplementedError):
             TableSpec(**GEOM, **kw)
     # a geometry outside the fused-apply kernel resolves, on a CUDA table,
