@@ -58,7 +58,26 @@ printing one JSON line:
    the main geometry with the scenarios' ``ResizePolicy`` pinned to the
    initial depth, against the streaming oracle, then the same trace
    without the policy: depth by phase, auto-splits and merges, ms per
-   transaction, the policy's share and its host reads.
+   transaction, the policy's share and its host reads;
+10. the serving path: the main image restored under the main geometry,
+    the router's cost model measured, then a ``Router`` (1,024-op batches,
+    2 ms delay bound) driven on a virtual clock by 1,024 closed-loop
+    clients of 128 requests each in the main path's 90/10 mix, every
+    result checked against a dict oracle in the router's linearization
+    order, handed over onto the wide geometry halfway with requests
+    queued: mismatches, drops, latency percentiles, requests per second
+    of service time, the cost model, and the launches before the handover
+    (the fused kernels only) and after it (the unfused ones only); then
+    ``serve_closed_loop`` (256 clients x 64 "churn" ops, the scenarios'
+    policy, a handover onto the wide geometry) against its oracle;
+11. the chaos path: ``chaos_replay`` of ``chaos_churn`` stretched to
+    110,000 ops with a schedule of 12 events (the default 24 cut, listed
+    as ``reduced``: restores at 16 lanes take three quarters of the run)
+    of every kind (kill/revive, re-shard, policy flap, backend swap
+    across ``plain``/``cuda``/``auto``, router handover, torn save)
+    against the streaming oracle: digests after every event and at the
+    end, mismatches, the error flag, depth, splits and merges, launches,
+    and the seconds in restores against the rest.
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -113,6 +132,25 @@ PAGE_TIMED = 32
 # (maintain runs drain_steps // 2 = 512 steps)
 ELASTIC_TRACE = dict(universe=2**20, fill_steps=1024, stable_steps=128,
                      drain_steps=1024, refill_steps=256, batch=512)
+# the serving path: the router over the main table restored from its image,
+# SERVE_CLIENTS closed-loop clients of SERVE_REQUESTS requests each (the
+# main path's 90/10 mix), handed over onto WIDE_SPEC halfway; then
+# serve_closed_loop itself with LOOP_CLIENTS x LOOP_OPS "churn" ops
+SERVE_CLIENTS = 1024
+SERVE_REQUESTS = 128
+SERVE_CONFIG = dict(max_batch=1024, max_queue_per_shard=2048,
+                    max_delay_s=2e-3)
+LOOP_CLIENTS = 256
+LOOP_OPS = 64
+LOOP_CONFIG = dict(max_batch=512, max_queue_per_shard=512)
+# the chaos path: chaos_churn stretched to the JAX package's 100k-op
+# acceptance bar (tests/test_chaos.py), every event kind
+CHAOS_OPS = 110_000
+CHAOS_MIN_OPS = 100_000
+# chaos_setup's default schedule has 24 events, 14 of them restores at 16
+# lanes, which take three quarters of the run (PERF.md); 12 keep every
+# kind and halve them
+CHAOS_EVENTS = 12
 
 
 def emit(obj) -> None:
@@ -1677,6 +1715,354 @@ def elastic_path(seed, dev):
           "ok": True})
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the serving path — the router over the main table
+
+
+class ServeClients:
+    """Closed-loop clients over the main path's mix: each keeps one
+    request in flight; 90% lookups (half live keys, half never-inserted
+    ones), 10% writes (a quarter each: new inserts, upserts and deletes of
+    live keys, deletes of never-inserted keys). Results are checked
+    against the dict oracle in the router's linearization order."""
+
+    def __init__(self, rng, oracle: Oracle, fresh, absent, n, requests):
+        from repro_torch.serving.router import DEL, INS, READ
+        self.kinds = READ, INS, DEL
+        self.rng, self.oracle = rng, oracle
+        self.fresh, self.absent = iter(fresh.tolist()), absent
+        self.remaining = [requests] * n
+        self.ready = [(0.0, c) for c in range(n)]       # a heap
+        self.in_flight = {}
+        self.status_mm = self.content_mm = self.completed = 0
+        self.examples = []
+
+    def pick(self):
+        READ, INS, DEL = self.kinds
+        r, live = self.rng, self.oracle.keys
+        u = r.random()
+        if u < 0.9:
+            if u < 0.45:
+                return READ, live[int(r.integers(len(live)))], 0
+            return READ, int(self.absent[int(r.integers(len(self.absent)))]), 0
+        w = int(r.integers(4))
+        value = int(r.integers(0, 2**31 - 1))
+        if w == 0:
+            return INS, next(self.fresh), value
+        if w == 3:
+            return DEL, int(self.absent[int(r.integers(len(self.absent)))]), 0
+        key = live[int(r.integers(len(live)))]
+        return (INS if w == 1 else DEL), key, value
+
+    def submit_ready(self, router, now):
+        import heapq
+        while self.ready and self.ready[0][0] <= now:
+            _, c = heapq.heappop(self.ready)
+            kind, key, value = self.pick()
+            req, decision = router.submit(kind, key, value, now=now)
+            check(req is not None, f"request shed: {decision}")
+            self.in_flight[req.rid] = c
+
+    def absorb(self, done):
+        import heapq
+        READ, INS, _ = self.kinds
+        o = self.oracle
+        for req in done:
+            self.completed += 1
+            c = self.in_flight.pop(req.rid)
+            self.remaining[c] -= 1
+            if self.remaining[c]:
+                heapq.heappush(self.ready, (req.t_complete, c))
+            if req.kind == READ:
+                got = (req.found, req.result if req.found else None)
+                want = (req.key in o.d, o.d.get(req.key))
+                bad = got != want
+                self.content_mm += bad
+            else:
+                want = (o.insert(req.key, req.value) if req.kind == INS
+                        else o.delete(req.key))
+                got = req.status
+                bad = got != want
+                self.status_mm += bad
+            if bad and len(self.examples) < 8:
+                self.examples.append([req.kind, req.key, got, want])
+
+    def next_time(self, router, now, busy_until):
+        """The next moment something can happen: a client's ready time,
+        the oldest queued request's ``max_delay_s`` deadline, or now if a
+        dispatch is due — never before the last dispatch completed."""
+        if router.should_dispatch(now):
+            return max(now, busy_until)
+        times = [self.ready[0][0]] if self.ready else []
+        if len(router.queues):
+            times.append(now + router.config.max_delay_s
+                         - router.queues.oldest_wait(now))
+        return max(min(times), busy_until) if times else now
+
+
+def serve_requests(router, clients, wide_spec):
+    """Drive ``clients`` through ``router`` on a virtual clock; hand over
+    onto ``wide_spec`` once half the requests completed, with requests
+    still queued. Returns (launches before, at and after the handover,
+    summed service seconds, handover seconds, virtual seconds)."""
+    total = sum(clients.remaining)
+    now = busy_until = service_s = 0.0
+    launches, handover_s = {}, 0.0
+    zero_counts()
+    while clients.ready or len(router.queues):
+        clients.submit_ready(router, now)
+        if (not launches and clients.completed >= total // 2
+                and len(router.queues)):
+            launches["before"] = read_counts()
+            zero_counts()
+            t0 = time.perf_counter()
+            router.handover(wide_spec)
+            torch.cuda.synchronize()
+            handover_s = time.perf_counter() - t0
+            launches["handover"] = read_counts()
+            zero_counts()
+        done = router.pump(now=now)
+        if done:
+            busy_until = done[0].t_complete
+            service_s += done[0].t_complete - done[0].t_dispatch
+            clients.absorb(done)
+        now = clients.next_time(router, now, busy_until)
+    launches["after"] = read_counts()
+    return launches, service_s, handover_s, now
+
+
+def latency_ms(hist):
+    s = hist.summary()
+    return {k: s[k] for k in ("p50_ms", "p99_ms", "p999_ms", "mean_ms")}
+
+
+def serving_path(rng, dev, seed):
+    """The router at full size: the main image restored under MAIN_SPEC,
+    its cost model measured, SERVE_CLIENTS x SERVE_REQUESTS closed-loop
+    requests checked against a dict oracle, a handover onto WIDE_SPEC
+    halfway; then ``serve_closed_loop`` on the main geometry with the
+    scenarios' policy, handed over onto the wide geometry."""
+    from repro_torch.core.invariants import check_invariants, to_dict
+    from repro_torch.core.snapshot import load_image
+    from repro_torch.serving.router import (Router, RouterConfig,
+                                            measure_cost_model)
+    from repro_torch.table_api import Table, TableSpec
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.scenarios import POLICY
+
+    t_phase = time.perf_counter()
+    path = str(ROOT / "build" / "chip_smoke" / "main.npz")
+    image = load_image(path)
+    oracle = Oracle()
+    for k, v in zip(image.keys.tolist(), image.values.tolist()):
+        oracle.insert(k, v)
+    spec = TableSpec(**MAIN_SPEC, backend="cuda")
+    t0 = time.perf_counter()
+    table = Table.restore(path, spec, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    cost = measure_cost_model(table)
+    n_writes = SERVE_CLIENTS * SERVE_REQUESTS // 10
+    keys = distinct_keys(rng, 2 * n_writes + 2**16)
+    keys = keys[~np.isin(keys, image.keys)]
+    fresh, absent = keys[:n_writes], keys[n_writes:]
+    clients = ServeClients(rng, oracle, fresh, absent, SERVE_CLIENTS,
+                           SERVE_REQUESTS)
+    router = Router(table, RouterConfig(**SERVE_CONFIG), cost_model=cost)
+    router.warmup()
+    t0 = time.perf_counter()
+    launches, service_s, handover_s, virtual_s = serve_requests(
+        router, clients, TableSpec(**WIDE_SPEC, backend="cuda"))
+    serve_s = time.perf_counter() - t0
+    rep = router.report()
+    check(clients.status_mm == 0 and clients.content_mm == 0,
+          f"serving mismatches: {clients.examples}")
+    check(rep["dropped"] == 0 and rep["handovers"] == 1
+          and rep["admitted"] == rep["completed"]
+          == SERVE_CLIENTS * SERVE_REQUESTS, f"serving counts {rep}")
+    before, after = launches["before"], launches["after"]
+    check(before["fused_probe"] > 0 and before["fused_apply"] > 0
+          and before["probe"] == before["grouped_apply"] == 0,
+          f"launches before the handover {before}")
+    check(after["probe"] > 0 and after["grouped_apply"] > 0
+          and after["fused_probe"] == after["fused_apply"] == 0,
+          f"launches after the handover {after}")
+    t = router.table
+    check(not bool(t.state.error), "serving error flag")
+    check_invariants(t.config, t.state)
+    check(to_dict(t.config, t.state) == oracle.d, "serving final content")
+
+    policy = dataclasses.replace(POLICY, min_depth=MAIN_SPEC["initial_depth"])
+    zero_counts()
+    t0 = time.perf_counter()
+    loop = serve_closed_loop(
+        TableSpec(**MAIN_SPEC, backend="cuda", resize_policy=policy),
+        n_clients=LOOP_CLIENTS, ops_per_client=LOOP_OPS, device=dev,
+        mix="churn", seed=seed, router_config=RouterConfig(**LOOP_CONFIG),
+        handover_at=0.5, handover_spec=TableSpec(**WIDE_SPEC, backend="cuda",
+                                                 resize_policy=policy))
+    loop_s = time.perf_counter() - t0
+    loop_launches = read_counts()
+    check(loop["ok"], f"serve_closed_loop: {loop['mismatch_examples']}")
+    check(loop["handovers"] == 1 and loop["dropped"] == 0
+          and loop_launches["fused_apply"] > 0
+          and loop_launches["grouped_apply"] > 0,
+          f"serve_closed_loop launches {loop_launches}")
+    n = rep["completed"]
+    emit({"phase": "serving_path", "spec": MAIN_SPEC, "handover_to": WIDE_SPEC,
+          "config": SERVE_CONFIG, "clients": SERVE_CLIENTS,
+          "requests_per_client": SERVE_REQUESTS, "image_items": image.n_items,
+          "restore_s": restore_s, "status_mismatches": clients.status_mm,
+          "content_mismatches": clients.content_mm,
+          "submitted": rep["submitted"], "admitted": rep["admitted"],
+          "completed": n, "dropped": rep["dropped"],
+          "handovers": rep["handovers"], "handover_s": handover_s,
+          "shed_queue_full": rep["shed_queue_full"],
+          "shed_pressure": rep["shed_pressure"],
+          "deferred_rounds": rep["deferred_rounds"],
+          "dispatches": rep["dispatches"], "mean_batch": rep["mean_batch"],
+          "total_ms": latency_ms(router.metrics.total),
+          "service_ms": latency_ms(router.metrics.service),
+          "queue_wait_ms": latency_ms(router.metrics.queue_wait),
+          "service_s": service_s,
+          "requests_per_service_s": n / service_s,
+          "virtual_s": virtual_s, "wall_s": serve_s,
+          "cost_model": {k: rep["cost_model"][k]
+                         for k in ("base_s", "chunk_s", "batch_floor")},
+          "launches_before_handover": launches["before"],
+          "launches_handover": launches["handover"],
+          "launches_after_handover": launches["after"],
+          "closed_loop": {
+              "clients": LOOP_CLIENTS, "ops_per_client": LOOP_OPS,
+              "mix": "churn", "config": LOOP_CONFIG, "ok": loop["ok"],
+              "completed": loop["completed"],
+              "status_mismatches": loop["status_mismatches"],
+              "content_mismatches": loop["content_mismatches"],
+              "handovers": loop["handovers"], "dropped": loop["dropped"],
+              "peak_pressure": loop["peak_pressure"],
+              "maintenance_rounds": loop["maintenance_rounds"],
+              "deferred_rounds": loop["deferred_rounds"],
+              "shed_pressure": loop["shed_pressure"],
+              "dispatches": loop["dispatches"],
+              "mean_batch": loop["mean_batch"],
+              "total_ms": {k: loop["total"][k]
+                           for k in ("p50_ms", "p99_ms", "p999_ms")},
+              "cost_model": loop["cost_model"], "launches": loop_launches,
+              "wall_s": loop_s},
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the chaos path — fault injection against the streaming oracle
+
+
+def chaos_timed(spec, trace, schedule, dev):
+    """``chaos_replay`` with host timers (a synchronize around each call)
+    on the restores (``restore_from_image``: kill/revive, re-shard,
+    handover, torn save) and the image extractions (saves and digest
+    checks), and counts of the write transactions in and out of restores
+    and of the calls of ``core/table.py::apply_batch`` (the ``plain``
+    plan's transaction, and the ``cuda`` plan's ``ST_FULL`` slow path).
+    Returns the report and {part: [calls, seconds] or counts}."""
+    from repro_torch import table_api
+    from repro_torch.core import snapshot as S
+    from repro_torch.core import table as T
+    from repro_torch.workloads.chaos import chaos_replay
+
+    acc = {"restore": [0, 0.0], "extract": [0, 0.0]}
+    counts = {"trace_transactions": 0, "restore_transactions": 0,
+              "trace_apply_batch": 0, "restore_apply_batch": 0}
+    in_restore = [False]
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            in_restore[0] = name == "restore"
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                in_restore[0] = False
+            acc[name][0] += 1
+            acc[name][1] += time.perf_counter() - t0
+            return out
+        return run
+
+    def counted(what, fn):
+        def run(*args):
+            counts[("restore_" if in_restore[0] else "trace_") + what] += 1
+            return fn(*args)
+        return run
+
+    patches = [(S, "restore_from_image", timed("restore",
+                                               S.restore_from_image)),
+               (S, "extract_image", timed("extract", S.extract_image)),
+               (table_api, "_raw_apply", counted("transactions",
+                                                 table_api._raw_apply)),
+               (T, "apply_batch", counted("apply_batch", T.apply_batch))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    t0 = time.perf_counter()
+    try:
+        rep = chaos_replay(spec, trace, schedule, device=dev,
+                           oracle="streaming", raise_on_mismatch=False)
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    rest = time.perf_counter() - t0 - acc["restore"][1] - acc["extract"][1]
+    return rep, {**acc, "trace_and_checks_s": rest, **counts}
+
+
+def chaos_path(seed, dev):
+    """``chaos_replay`` of ``chaos_setup("chaos_churn", ops=CHAOS_OPS)``
+    on the card with a schedule of CHAOS_EVENTS events: every event kind,
+    the streaming oracle, ``backend_swap`` cycling ``plain``/``cuda``/
+    ``auto``."""
+    from repro_torch.workloads.chaos import EVENT_KINDS, chaos_setup
+
+    spec, trace, schedule = chaos_setup("chaos_churn", seed=seed,
+                                        ops=CHAOS_OPS, n_events=CHAOS_EVENTS)
+    full = chaos_setup("chaos_churn", seed=seed, ops=CHAOS_OPS)[2]
+    zero_counts()
+    t0 = time.perf_counter()
+    rep, where = chaos_timed(spec, trace, schedule, dev)
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    ops = rep["mutations"] + rep["reads"]
+    check(rep["status_mismatches"] == 0 and rep["content_mismatches"] == 0,
+          f"chaos mismatches: {rep['mismatch_examples']}")
+    check(not rep["error_flag"] and rep["ok"], "chaos error flag")
+    check(ops >= CHAOS_MIN_OPS, f"chaos checked {ops} ops")
+    check(set(rep["event_counts"]) == set(EVENT_KINDS)
+          and rep["events_skipped"] == 0, f"chaos events {rep['events']}")
+    check(all(r["digest_ok"] for r in rep["events"]), "chaos event digests")
+    check(launches["fused_probe"] > 0 and launches["fused_apply"] > 0,
+          f"chaos launches {launches}")
+    emit({"phase": "chaos_path", "scenario": "chaos_churn", "seed": seed,
+          "ops_target": CHAOS_OPS,
+          "reduced": {"n_events": [len(full), len(schedule)]},
+          "spec": {k: getattr(spec, k) for k in ("dmax", "bucket_size",
+                                                 "pool_size", "n_lanes")},
+          "steps": rep["steps"], "mutations": rep["mutations"],
+          "reads": rep["reads"], "checked_ops": ops,
+          "event_counts": rep["event_counts"],
+          "events_fired": rep["events_fired"],
+          "events_skipped": rep["events_skipped"],
+          "digest_ok_every_event": True, "final_digest_ok": True,
+          "status_mismatches": 0, "content_mismatches": 0,
+          "error_flag": rep["error_flag"],
+          "backends": [r["backend"] for r in rep["events"]
+                       if "backend" in r],
+          "depth": {k: v for k, v in rep["depth"].items()
+                    if k != "trajectory"},
+          "auto_splits": rep["policy"]["splits"],
+          "auto_merges": rep["policy"]["merges"], "launches": launches,
+          "seconds": secs, "where": where, "ok": True})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1703,6 +2089,8 @@ def main() -> int:
     kernels = kernel_times(t, tw, rng, dev, launches, checks)
     schema_path(rng, dev, raw_restore_rate)
     elastic_path(args.seed, dev)
+    serving_path(rng, dev, args.seed)
+    chaos_path(args.seed, dev)
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import EMPTY_KEY, HASH_BITS, hash_np
-from repro_torch.core.spec import TableSpec
+from repro_torch.core.spec import TableSpec, signed_view
 
 FORMAT_MAGIC = "wfext-table-image"
 FORMAT_VERSION = 1
@@ -110,7 +110,7 @@ def extract_image(table) -> TableImage:
             words.cpu().numpy().astype(np.int32)[order])
     else:
         h = words.long()
-        values = {name: slab[h].cpu().numpy()[order]
+        values = {name: _rows_numpy(slab, h)[order]
                   for name, slab in table.slabs.items()}
     header = {
         "format": FORMAT_MAGIC,
@@ -129,6 +129,28 @@ def extract_image(table) -> TableImage:
         },
     }
     return TableImage(header=header, keys=item_keys[order], values=values)
+
+
+def _rows_numpy(slab: torch.Tensor, rows: torch.Tensor) -> np.ndarray:
+    """``slab[rows]`` as a host array, gathered through a signed view (no
+    unsigned gather is assumed on the device). A ``bfloat16`` field, which
+    numpy lacks, becomes its raw 2-byte words (dtype ``V2``): the bytes
+    and the dtype the JAX package's image file holds for such a field."""
+    x = signed_view(slab)[rows].cpu()
+    if slab.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view("V2")
+    return x.view(slab.dtype).numpy()
+
+
+def _from_numpy(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """An image's payload array as a tensor of the field's ``dtype``. A
+    ``bfloat16`` field is bit-cast from its 2-byte words, whether they load
+    as ``V2`` (an image file), ``ml_dtypes.bfloat16`` (the JAX package's
+    in-memory image) or 16-bit integers."""
+    arr = np.ascontiguousarray(arr)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +320,8 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
         dev = table.device
         keys = torch.tensor(image.keys, dtype=torch.int32, device=dev)
         if isinstance(image.values, dict):
-            values = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            dtypes = spec.field_dtypes()
+            values = {name: _from_numpy(arr, dtypes[name]).to(dev)
                       for name, arr in image.values.items()}
         else:
             values = torch.tensor(image.values, dtype=torch.int32, device=dev)

@@ -19,12 +19,13 @@ per-item shape)``::
     schema = {"page": "int32", "score": (torch.float32, (4,))}
 
 and is normalized to a sorted tuple of :class:`ValueField` whose dtypes are
-numpy dtype names (``"int32"``, ``"float32"``, ...), the names the JAX
-package writes, so that image headers match. With a schema the table
-stores payloads in a struct-of-slabs side store: one tensor of shape
-``[slab_rows + 1, *field_shape]`` per field, indexed by a stable handle
-that travels in the table's i32 value word. Row ``slab_rows`` is the
-write-trash row.
+numpy dtype names (``"int32"``, ``"float32"``, ``"bfloat16"``, ...), the
+names the JAX package writes, so that image headers match. A 64-bit field
+keeps its full width here; the JAX package, with x64 off, keeps it in a
+32-bit slab. With a schema the table stores payloads in a struct-of-slabs
+side store: one tensor of shape ``[slab_rows + 1, *field_shape]`` per
+field, indexed by a stable handle that travels in the table's i32 value
+word. Row ``slab_rows`` is the write-trash row.
 """
 from __future__ import annotations
 
@@ -50,7 +51,10 @@ class ValueField(NamedTuple):
 
 def _dtype_name(dtype) -> str:
     """The numpy name of ``dtype`` (a string, a numpy dtype or a
-    ``torch.dtype``); a torch dtype without a numpy counterpart raises."""
+    ``torch.dtype``); ``bfloat16``, which numpy lacks, maps by name. A
+    torch dtype without a numpy counterpart raises."""
+    if dtype is torch.bfloat16 or str(dtype) == "bfloat16":
+        return "bfloat16"
     if isinstance(dtype, torch.dtype):
         return torch.empty(0, dtype=dtype).numpy().dtype.name
     return np.dtype(dtype).name
@@ -58,7 +62,22 @@ def _dtype_name(dtype) -> str:
 
 def torch_dtype(name: str) -> torch.dtype:
     """The ``torch.dtype`` of a schema field's numpy dtype name."""
+    if name == "bfloat16":
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, name)).dtype
+
+
+# same-width signed counterparts: PyTorch lacks index_put for unsigned
+# tensors, so payloads are scattered and gathered through these views
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+
+def signed_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` viewed as its same-width signed type when it is unsigned
+    (16 bits and wider), else ``x`` itself: the same bytes either way."""
+    signed = _SIGNED.get(x.dtype)
+    return x if signed is None else x.view(signed)
 
 
 def normalize_schema(schema: Any) -> Optional[Tuple[ValueField, ...]]:

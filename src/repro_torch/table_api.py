@@ -45,7 +45,8 @@ from repro_torch.core import snapshot
 from repro_torch.core import table as T
 from repro_torch.core.policy import (ResizePolicy, resize_pressure,
                                      wrap_apply_fn)
-from repro_torch.core.spec import TableSpec, ValueField, torch_dtype
+from repro_torch.core.spec import (TableSpec, ValueField, signed_view,
+                                   torch_dtype)
 from repro_torch.core.table import (DEL, INS, NOP, BatchResult, OpBatch,
                                     from_numpy_state, resolve_device,
                                     to_numpy)
@@ -164,9 +165,10 @@ class Table:
         h = torch.where(found, word, cap).clamp(0, cap).long()
         out = {}
         for name, slab in self.slabs.items():
-            leaf = slab[h]
+            leaf = signed_view(slab)[h]
             mask = found.reshape(found.shape + (1,) * (leaf.ndim - 1))
-            out[name] = torch.where(mask, leaf, torch.zeros_like(leaf))
+            out[name] = torch.where(mask, leaf, torch.zeros_like(leaf)).view(
+                slab.dtype)
         return found, out
 
     def size(self) -> torch.Tensor:
@@ -412,7 +414,7 @@ def _write_payloads(slabs, values, keys, handle, is_ins, status, cap: int):
     write[order] = is_end & in_mask
     rows = torch.where(write, handle, cap).long()
     for name, slab in slabs.items():
-        slab[rows] = values[name]
+        signed_view(slab)[rows] = signed_view(values[name])
 
 
 def _reconcile_handles(slab_live, found0, h0, first, rows, found1, h1,

@@ -11,14 +11,23 @@ The JAX package's ``repro.workloads`` for local placement:
 * :mod:`repro_torch.workloads.replay` — runs a trace through the port's
   :class:`~repro_torch.table_api.Table` on one device and checks every
   status and read against the sequential oracle of
-  :mod:`repro_torch.core.reference`.
-
-The chaos harness and the serving driver are not ported yet.
+  :mod:`repro_torch.core.reference`;
+* :mod:`repro_torch.workloads.serving_driver` — the closed-loop
+  multi-client driver of the serving router
+  (:mod:`repro_torch.serving.router`), checked in the router's
+  linearization order, with an optional mid-trace handover;
+* :mod:`repro_torch.workloads.chaos` — the chaos replay harness: a
+  seed-deterministic fault-injection schedule (kill/revive, re-shard,
+  policy flaps, backend swaps, router handovers, torn saves) over any
+  registry scenario, checked per op and per event against the streaming
+  oracle, with a failing-seed CLI
+  (``python -m repro_torch.workloads.chaos --seed N``).
 """
 
 from repro_torch.workloads.generators import OpMix, YCSB_MIXES
 from repro_torch.workloads.replay import ReplayMismatch, oracle_for, replay
 from repro_torch.workloads.scenarios import SCENARIOS, get_scenario
+from repro_torch.workloads.serving_driver import serve_closed_loop
 from repro_torch.workloads.trace import Phase, Trace
 
 __all__ = [
@@ -31,4 +40,24 @@ __all__ = [
     "ReplayMismatch",
     "SCENARIOS",
     "get_scenario",
+    "serve_closed_loop",
+    "EVENT_KINDS",
+    "ChaosConfig",
+    "ChaosEvent",
+    "gen_schedule",
+    "chaos_setup",
+    "chaos_replay",
+    "shrink_schedule",
 ]
+
+# chaos is exported lazily (PEP 562): an eager import would make
+# ``python -m repro_torch.workloads.chaos`` import the module twice
+_CHAOS_NAMES = frozenset(__all__[__all__.index("EVENT_KINDS"):])
+
+
+def __getattr__(name):
+    if name in _CHAOS_NAMES:
+        from repro_torch.workloads import chaos
+
+        return getattr(chaos, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import snapshot as S
 from repro_torch.core.invariants import check_invariants, to_dict
 from repro_torch.core.policy import ResizePolicy
 from repro_torch.table_api import Table, TableSpec, to_numpy
@@ -113,3 +114,103 @@ def test_policy_cuda_plan_matches_plain_plan(cuda):
     assert splits > 0 and merges > 0
     assert_rows_equal_as_sets(a, p, geom["pool_size"])
     check_invariants(a.config, a.state)
+
+
+DTYPES = ["int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+          "uint64", "float16", "float32", "float64", "bool", "bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_dtype_on_the_card(dtype, cuda, tmp_path):
+    """A scalar and a ``(2,)`` field of ``dtype`` under the ``cuda`` plan on
+    the card and the ``plain`` plan on the CPU: equal statuses and payloads
+    (unsigned and 64-bit values past 32 bits included), equal images, and
+    each restores the other's image."""
+    geom = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
+    schema = {"v": dtype, "w": (dtype, (2,))}
+    tables = [Table.create(TableSpec(**geom, backend=b, value_schema=schema),
+                           device=dev)
+              for dev, b in ((cuda, "cuda"), (torch.device("cpu"), "plain"))]
+    tdt = tables[0].spec.field_dtypes()["v"]
+    rng = np.random.default_rng(DTYPES.index(dtype))
+
+    def vals(keys):
+        k = torch.as_tensor(np.asarray(keys, np.int64))
+        if tdt == torch.bool:
+            v = k % 3 == 0
+        elif tdt.is_floating_point:
+            v = (k % 256).to(tdt) / 4
+        else:
+            top = (2**63 - 1 if tdt in (torch.int64, torch.uint64)
+                   else 2**31 - 1 if tdt in (torch.int32, torch.uint32)
+                   else 2**15 - 1 if tdt in (torch.int16, torch.uint16)
+                   else 2**7 - 1)
+            v = (k * 7919 + top - 4000).to(tdt)
+        return {"v": v, "w": torch.stack([v, v], -1)}
+
+    keys = rng.choice(np.arange(1, 4000), size=48,
+                      replace=False).astype(np.int32)
+    batches = [(np.ones(48, np.int32), keys),
+               (np.ones(24, np.int32), keys[:24]),
+               (np.full(24, 2, np.int32), keys[12:36])]
+    for _ in range(3):
+        batches.append((rng.integers(0, 3, size=24).astype(np.int32),
+                        rng.choice(np.r_[keys, keys + 4001],
+                                   size=24).astype(np.int32)))
+    for i, (kinds, ks) in enumerate(batches):
+        st = []
+        for j, t in enumerate(tables):
+            tables[j], res = t.apply(kinds, ks, vals(ks.astype(np.int64) + i))
+            st.append(res.status.cpu())
+        assert torch.equal(st[0], st[1])
+    q = np.r_[keys, keys + 4001].astype(np.int32)
+
+    def read(t):
+        found, got = t.lookup(q)
+        return found.cpu(), {k: v.cpu() for k, v in got.items()}
+
+    def same(got, want):
+        assert torch.equal(got[0], want[0])
+        for name, leaf in got[1].items():
+            assert leaf.dtype == tdt and torch.equal(leaf, want[1][name]), name
+
+    want = read(tables[1])
+    same(read(tables[0]), want)
+    paths = [t.save(str(tmp_path / f"{i}.npz")) for i, t in enumerate(tables)]
+    a, b = (S.load_image(p) for p in paths)
+    assert a.header == b.header
+    for name in ("v", "w"):
+        np.testing.assert_array_equal(a.values[name].view(np.uint8),
+                                      b.values[name].view(np.uint8))
+    for path, dev, backend in ((paths[1], cuda, "cuda"),
+                               (paths[0], torch.device("cpu"), "plain")):
+        same(read(Table.restore(path, TableSpec(**geom, backend=backend,
+                                                value_schema=schema),
+                                device=dev)), want)
+
+
+@pytest.mark.cuda
+def test_router_and_chaos_on_the_card(cuda):
+    """The closed-loop driver with a handover, and a chaos run firing every
+    event kind (``backend_swap`` across ``plain``/``cuda``/``auto``), on
+    the card against their oracles."""
+    from repro_torch.serving.router import RouterConfig, default_cost_model
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.chaos import (EVENT_KINDS, chaos_replay,
+                                             chaos_setup)
+
+    spec = TableSpec(dmax=8, bucket_size=8, pool_size=512, n_lanes=8,
+                     resize_policy=ResizePolicy())
+    rep = serve_closed_loop(
+        spec, n_clients=6, ops_per_client=50, device=cuda, mix="churn",
+        seed=8, cost_model=default_cost_model(8),
+        router_config=RouterConfig(max_batch=16, max_delay_s=1e-3),
+        handover_at=0.5, handover_spec=dataclasses.replace(
+            spec, dmax=9, pool_size=1024))
+    assert rep["ok"] and rep["handovers"] == 1, rep["mismatch_examples"]
+    spec, trace, schedule = chaos_setup("chaos_churn", seed=3, scale=0.4)
+    rep = chaos_replay(spec, trace, schedule, device=cuda, oracle="both")
+    assert rep["ok"], rep["mismatch_examples"]
+    assert set(rep["event_counts"]) == set(EVENT_KINDS)
+    assert rep["events_skipped"] == 0

@@ -346,3 +346,188 @@ def test_state_with_slabs_carries_across():
     np.testing.assert_array_equal(res.status.numpy(), np.asarray(jres.status))
     assert_same_tables(t, jt)
     assert_same_lookup(t, jt, np.arange(1, 95, dtype=np.int32))
+
+
+# ---------------------------------------------------------------------------
+# every dtype the JAX spec takes
+
+DTYPES = ["int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+          "uint64", "float16", "float32", "float64", "bool", "bfloat16"]
+
+
+def typed(dtype, keys):
+    """Seeded values of ``dtype`` for ``keys`` as a numpy array (``bfloat16``
+    through ``ml_dtypes``), each field's unsigned range exercised; 64-bit
+    values stay inside the 32 bits the JAX package keeps with x64 off."""
+    k = np.asarray(keys, np.int64)
+    if dtype == "bool":
+        return k % 3 == 0
+    if dtype.startswith("float") or dtype == "bfloat16":
+        # multiples of 1/4 below 64: exact in every float type
+        return ((k % 256) / 4).astype(jnp.dtype(dtype))
+    if dtype.startswith("uint"):
+        top = 1 << (min(np.iinfo(dtype).bits, 32) - 1)
+        return ((k % 1000) + top).astype(dtype)
+    info = np.iinfo(dtype)
+    return ((k % (min(info.max, 1 << 20))) - min(info.max, 1 << 19) // 2
+            ).astype(dtype)
+
+
+def to_bits(x):
+    """A payload (torch tensor, JAX array or numpy array, image ``V2`` words
+    included) as a numpy array comparable across packages: ``bfloat16`` as
+    its 16-bit words."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy()
+        return x.numpy()
+    x = np.asarray(x)
+    if x.dtype.itemsize == 2 and x.dtype.kind not in "iuf":
+        return x.view(np.int16)          # ml_dtypes.bfloat16 or V2 words
+    return x
+
+
+def port_values(schema, vals):
+    """The JAX-side numpy payloads as the port's tensors (``bfloat16``
+    bit-cast, since numpy has no ``bfloat16`` that torch reads)."""
+    out = {}
+    for f in schema:
+        v = vals[f.name]
+        if f.dtype == "bfloat16":
+            out[f.name] = torch.from_numpy(
+                np.ascontiguousarray(v).view(np.int16)).view(torch.bfloat16)
+        else:
+            out[f.name] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_dtype_matches_jax(dtype, tmp_path):
+    """One scalar and one ``(2,)`` field of ``dtype``: the same insert,
+    upsert, delete and mixed batches through the JAX facade
+    (``backend="xla"``) and the port (CPU) give equal statuses, payloads,
+    slabs and images, and each package restores the other's image."""
+    geom = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
+    port_schema = {"v": dtype, "w": (dtype, (2,))}
+    jax_schema = {"v": jnp.dtype(dtype), "w": (jnp.dtype(dtype), (2,))}
+    spec = TableSpec(**geom, backend="plain", value_schema=port_schema)
+    jspec = JaxSpec(**geom, backend="xla", value_schema=jax_schema)
+    assert spec.value_schema == jspec.value_schema
+    t, jt = Table.create(spec, device="cpu"), JaxTable.create(jspec)
+    rng = np.random.default_rng(DTYPES.index(dtype))
+
+    def vals(keys):
+        w = np.stack([typed(dtype, keys), typed(dtype, np.asarray(keys) + 7)],
+                     -1)
+        return {"v": typed(dtype, keys), "w": w}
+
+    def both(kinds, keys, v):
+        nonlocal t, jt
+        t, res = t.apply(kinds, keys, port_values(spec.value_schema, v))
+        jt, jres = jt.apply(kinds, keys, v)
+        np.testing.assert_array_equal(res.status.numpy(),
+                                      np.asarray(jres.status))
+
+    def same_lookup(q):
+        found, got = t.lookup(q)
+        jfound, jgot = jt.lookup(q)
+        np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+        for name in ("v", "w"):
+            assert got[name].dtype == spec.field_dtypes()[name]
+            np.testing.assert_array_equal(to_bits(got[name]),
+                                          to_bits(jgot[name]), err_msg=name)
+
+    # every batch 24 ops and every lookup 96 keys: one compiled shape each
+    keys = rng.choice(np.arange(1, 4000), size=48,
+                      replace=False).astype(np.int32)
+    ones = np.ones(24, np.int32)
+    both(ones, keys[:24], vals(keys[:24]))                 # insert
+    both(ones, keys[24:], vals(keys[24:]))
+    both(ones, keys[:24], vals(keys[:24] + 5))             # upsert
+    both(2 * ones, keys[12:36], vals(keys[12:36]))         # delete
+    for _ in range(3):
+        kinds = rng.integers(0, 3, size=24).astype(np.int32)
+        ks = rng.choice(np.r_[keys, keys + 4001], size=24).astype(np.int32)
+        both(kinds, ks, vals(ks + 1))
+    q = np.r_[keys, keys + 4001].astype(np.int32)
+    same_lookup(q)
+    cap = spec.slab_rows
+    for name, slab in t.slabs.items():
+        np.testing.assert_array_equal(to_bits(slab[:cap]),
+                                      to_bits(np.asarray(jt.slabs[name])[:cap]))
+
+    path = t.save(str(tmp_path / "port.npz"))
+    jpath = jt.save(str(tmp_path / "jax.npz"))
+    mine, theirs = S.load_image(path), S.load_image(jpath)
+    assert mine.header == theirs.header
+    assert mine.header["value_schema"][0][1] == dtype
+    np.testing.assert_array_equal(mine.keys, theirs.keys)
+    for name in ("v", "w"):
+        np.testing.assert_array_equal(to_bits(mine.values[name]),
+                                      to_bits(theirs.values[name]))
+        if dtype == "bfloat16":     # the same 2-byte words in both files
+            assert mine.values[name].dtype.str[1:] == "V2"
+            assert theirs.values[name].dtype.str[1:] == "V2"
+
+    # the port restores the JAX file and the JAX package's in-memory image
+    # (its bfloat16 arrays are ml_dtypes.bfloat16)
+    for image in (S.load_image(jpath), JS.extract_image(jt)):
+        back = S.restore_from_image(image, spec, "cpu")
+        found, got = back.lookup(q)
+        want_found, want = jt.lookup(q)
+        np.testing.assert_array_equal(found.numpy(), np.asarray(want_found))
+        for name in ("v", "w"):
+            np.testing.assert_array_equal(to_bits(got[name]),
+                                          to_bits(want[name]))
+    # the JAX package restores the port's file; its reader leaves a
+    # bfloat16 field as raw V2 words, which its restore cannot take, so
+    # they are viewed as ml_dtypes.bfloat16 first (ROADMAP §3)
+    image = JS.load_image(path)
+    if dtype == "bfloat16":
+        image.values = {k: v.view(jnp.bfloat16)
+                        for k, v in image.values.items()}
+    jback = JS.restore_from_image(image, jspec)
+    jfound, jgot = jback.lookup(q)
+    found, got = t.lookup(q)
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    for name in ("v", "w"):
+        np.testing.assert_array_equal(to_bits(got[name]), to_bits(jgot[name]))
+
+
+@pytest.mark.parametrize("declared", [torch.bfloat16, "bfloat16",
+                                      jnp.bfloat16, np.dtype(jnp.bfloat16)])
+def test_bfloat16_declarations(declared):
+    """``bfloat16`` declared as a torch dtype, by name, or as the JAX
+    package's type: one normal form, a ``torch.bfloat16`` slab."""
+    spec = TableSpec(**GEOM, value_schema={"b": declared})
+    assert spec.value_schema == (("b", "bfloat16", ()),)
+    assert spec.field_dtypes() == {"b": torch.bfloat16}
+    t = Table.create(spec, device="cpu")
+    assert t.slabs["b"].dtype == torch.bfloat16
+
+
+def test_64bit_fields_keep_full_width(tmp_path):
+    """The port keeps 64-bit fields at full width through insert, lookup,
+    save and restore (the JAX package, with x64 off, keeps 32 bits; a
+    deliberate divergence, ROADMAP §3): 2**40 reads back as 2**40."""
+    spec = TableSpec(**GEOM, value_schema={"i": "int64", "u": "uint64",
+                                           "f": "float64"})
+    t = Table.create(spec, device="cpu")
+    keys = np.array([3, 5, 7], np.int32)
+    want = {"i": torch.tensor([2**40, -2**40 - 1, 2**62], dtype=torch.int64),
+            "u": torch.tensor([2**40, 2**63 + 5, 2**64 - 1],
+                              dtype=torch.uint64),
+            "f": torch.tensor([2.0**40 + 0.5, 1 / 3, -1e300],
+                              dtype=torch.float64)}
+    t, res = t.insert(keys, want)
+    assert res.status.tolist() == [1, 1, 1]
+    for table in (t, Table.restore(t.save(str(tmp_path / "wide.npz")), spec,
+                                   device="cpu")):
+        found, got = table.lookup(keys)
+        assert found.all()
+        for name, w in want.items():
+            assert got[name].dtype == w.dtype
+            assert torch.equal(got[name], w), name
+    image = S.load_image(str(tmp_path / "wide.npz"))
+    assert image.values["i"].dtype == np.int64
+    assert int(image.values["i"][list(image.keys).index(3)]) == 2**40
