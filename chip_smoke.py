@@ -77,7 +77,19 @@ printing one JSON line:
     across ``plain``/``cuda``/``auto``, router handover, torn save)
     against the streaming oracle: digests after every event and at the
     end, mismatches, the error flag, depth, splits and merges, launches,
-    and the seconds in restores against the rest.
+    and the seconds in restores against the rest;
+12. the baselines path: the paper's comparison algorithms
+    (``core/baselines.py``: LF-Split, LF-Freeze-M, Lock), sized by
+    ``benchmarks/paper_figs.py``'s rules for the main path's 2**20-key
+    universe (depth 17), filled at 512 lanes with the main table's live
+    keys (LF-Freeze-M's ``-3`` statuses counted), then 16 rounds of the
+    main path's 90/10 mix through all four structures (WF-Ext through the
+    facade, its launches counted) against dict oracles, the error flags,
+    and ``paper_figs``'s directory-stable step (n lookups + one n-lane
+    batch, 90% lookups) timed at 16, 64 and 512 lanes: ops/s per
+    (algorithm, lanes), WF-Ext's launches per step (its 16- and 64-op
+    batches NOP-padded to 512). WF-Ext runs the CUDA kernels, the
+    baselines eager PyTorch.
 
 Then the ``nvidia-smi`` name/power line, the kernels line and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
@@ -151,6 +163,15 @@ CHAOS_MIN_OPS = 100_000
 # lanes, which take three quarters of the run (PERF.md); 12 keep every
 # kind and halve them
 CHAOS_EVENTS = 12
+# the baselines path: the paper's comparison algorithms sized by
+# benchmarks/paper_figs.py's rules (:120-140) at the main path's 2**20-key
+# universe, filled with the main table's live keys; the directory-stable
+# step (n lookups + one n-lane update batch, 90% lookups) timed per width
+BASE_KEYS = 2**20
+BASE_DEPTH = 17                     # log2(BASE_KEYS / 8)
+BASE_LANES = (16, 64, 512)
+BASE_ROUNDS = 16
+BASE_ITERS, BASE_WARMUP = 20, 3
 
 
 def emit(obj) -> None:
@@ -2063,6 +2084,289 @@ def chaos_path(seed, dev):
           "seconds": secs, "where": where, "ok": True})
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the baselines path — LF-Split, LF-Freeze-M and Lock beside WF-Ext
+
+
+class FreezeOracle:
+    """Dict oracle of LF-Freeze-M: lane order within a bucket, and an
+    insert of a new key into a bucket holding ``bucket_size`` keys reports
+    -3 and leaves the table as it was."""
+
+    def __init__(self, cfg):
+        self.cfg, self.d = cfg, {}
+        self.counts = np.zeros(cfg.nbuckets, np.int64)
+
+    def bucket(self, keys):
+        from repro_torch.core.hashing import hash_np
+        return hash_np(self.cfg.hash_name, keys) >> (32 - self.cfg.depth)
+
+    def apply(self, kinds, keys, values):
+        out = []
+        for c, k, v, b in zip(kinds.tolist(), keys.tolist(), values.tolist(),
+                              self.bucket(keys).tolist()):
+            if c == 0:
+                out.append(-1)
+            elif k in self.d:
+                out.append(0 if c == 1 else 1)
+                if c == 1:
+                    self.d[k] = v
+                else:
+                    del self.d[k]
+                    self.counts[b] -= 1
+            elif c == 2:
+                out.append(0)
+            elif self.counts[b] == self.cfg.bucket_size:
+                out.append(-3)
+            else:
+                out.append(1)
+                self.d[k] = v
+                self.counts[b] += 1
+        return np.asarray(out, np.int8)
+
+
+def baseline_configs(n_lanes: int):
+    """The three baselines as ``benchmarks/paper_figs.py`` sizes them for
+    ``BASE_KEYS`` keys."""
+    from repro_torch.core import baselines as BL
+    d = BASE_DEPTH
+    return {"LF-Split": BL.SplitConfig(
+                depth=d, max_nodes=2 * BASE_KEYS + (1 << d) + 64,
+                n_lanes=n_lanes, max_walk=128),
+            "LF-Freeze-M": BL.FreezeConfig(
+                depth=d, bucket_size=8, pool_size=BASE_KEYS // 2 + (1 << d),
+                n_lanes=n_lanes),
+            "Lock": BL.LockConfig(depth=d, bucket_size=64, n_lanes=n_lanes)}
+
+
+def baseline_ops(name, cfg):
+    """(update, lookup) of one baseline: ``update(st, kinds, keys, values)
+    -> (st, status)``; ``lookup(st, queries) -> (found, values)`` (Lock's
+    lookups are kind-3 lanes of its sequential fold, ``n_lanes`` a call)."""
+    from repro_torch.core import baselines as BL
+    if name == "LF-Split":
+        return (lambda st, *a: BL.split_update(cfg, st, *a),
+                lambda st, q: BL.split_lookup(cfg, st, q))
+    if name == "LF-Freeze-M":
+        return (lambda st, *a: BL.freeze_update(cfg, st, *a),
+                lambda st, q: BL.freeze_lookup(cfg, st, q))
+
+    def lock_lookup(st, q):
+        n = cfg.n_lanes
+        threes = torch.full((n,), 3, dtype=torch.int32, device=q.device)
+        outs = [BL.lock_step(cfg, st, threes, qq, qq)[1:]
+                for qq in q.split(n)]
+        return (torch.cat([s for s, _ in outs]) == 1,
+                torch.cat([v for _, v in outs]))
+    return (lambda st, *a: BL.lock_step(cfg, st, *a)[:2], lock_lookup)
+
+
+def fill_baseline(name, cfg, keys, values, dev):
+    """Insert ``keys`` at ``cfg.n_lanes`` lanes (the last chunk padded with
+    idle lanes). Returns (state, statuses of the keys, seconds)."""
+    from repro_torch.core import baselines as BL
+    init = {"LF-Split": BL.split_init, "LF-Freeze-M": BL.freeze_init,
+            "Lock": BL.lock_init}[name]
+    update, _ = baseline_ops(name, cfg)
+    n, m = cfg.n_lanes, len(keys)
+    pad = -m % n
+    kinds = torch.tensor(np.r_[np.ones(m), np.zeros(pad)].astype(np.int32),
+                         device=dev)
+    keys_d = torch.tensor(np.r_[keys, np.zeros(pad, np.int32)], device=dev)
+    vals_d = torch.tensor(np.r_[values, np.zeros(pad, np.int32)], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, statuses = init(cfg, dev), []
+    for c, k, v in zip(kinds.split(n), keys_d.split(n), vals_d.split(n)):
+        st, status = update(st, c, k, v)
+        statuses.append(status)
+    torch.cuda.synchronize()
+    return st, torch.cat(statuses)[:m].cpu().numpy(), time.perf_counter() - t0
+
+
+def paper_step_args(rng, keyspace, n, dev):
+    """One directory-stable step's inputs as ``benchmarks/paper_figs.py``
+    draws them at 90% lookups: n lookups, and an n-lane batch whose lanes
+    are inserts or deletes with probability 0.2 (half each), idle
+    otherwise. Like ``paper_figs``, every timed call takes these inputs
+    from the same filled state (``step_ms``), so about half the inserts are
+    fresh and half the deletes hit."""
+    kinds = np.where(rng.random(n) < 0.5, 1, 2)
+    kinds = np.where(rng.random(n) < 0.2, kinds, 0).astype(np.int32)
+    keys = rng.choice(keyspace, size=n).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, size=n).astype(np.int32)
+    q = rng.choice(keyspace, size=n).astype(np.int32)
+    return [torch.tensor(x, device=dev) for x in (kinds, keys, vals, q)]
+
+
+def copy_state(state):
+    """A copy on the device of a baseline's state or of a ``Table`` (one
+    without a value schema)."""
+    from repro_torch.table_api import Table
+    if isinstance(state, Table):
+        return state._replace(state=copy_state(state.state))
+    return type(state)(*(x.clone() for x in state))
+
+
+def step_ms(step, state):
+    """Host milliseconds of one ``step`` call (which synchronizes inside,
+    the retry rounds reading a device flag), averaged over ``BASE_ITERS``
+    calls after ``BASE_WARMUP``. As ``benchmarks/paper_figs.py`` does, every
+    call starts from the same filled ``state``: each takes a fresh copy,
+    made outside the timed region, and ``state`` itself is not written.
+    ``step(st) -> (st, statuses)``. Returns (ms, whether any call's state
+    set its error flag, the last call's statuses)."""
+    total, error = 0.0, False
+    for i in range(BASE_WARMUP + BASE_ITERS):
+        st = copy_state(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, status = step(st)
+        torch.cuda.synchronize()
+        if i >= BASE_WARMUP:
+            total += time.perf_counter() - t0
+        error |= bool(getattr(st, "state", st).error)
+    return total / BASE_ITERS * 1e3, error, status.cpu().numpy()
+
+
+def check_round(name, r, got, want):
+    for what, x, y in zip(("found", "values", "statuses"), got, want):
+        check(np.array_equal(np.asarray(x.cpu()), y),
+              f"{name} round {r} {what}")
+
+
+def baselines_path(t, rng, dev):
+    """The three baselines filled with the main table's live keys, then
+    ``BASE_ROUNDS`` rounds of the main path's 90/10 mix at 512 lanes
+    through all four structures (WF-Ext through the facade) against dict
+    oracles, then the directory-stable step timed per width."""
+    from repro_torch.core import table as T
+
+    t_phase = time.perf_counter()
+    n = MAIN_SPEC["n_lanes"]
+    snap = T.to_numpy(t.state)
+    rows = snap["live"][:-1]
+    live_k, live_v = snap["keys"][:-1][rows], snap["vals"][:-1][rows]
+    occ = live_k != EMPTY
+    # in random order: the pool's order groups keys by bucket, which would
+    # put a bucket's keys in one batch and time CAS retries, not inserts
+    perm = rng.permutation(int(occ.sum()))
+    live_k, live_v = live_k[occ][perm], live_v[occ][perm]
+    cfgs = baseline_configs(n)
+    # the oracles: WF-Ext, LF-Split and Lock hold every key; LF-Freeze-M
+    # what its fill did not block
+    oracle = Oracle()
+    for k, v in zip(live_k.tolist(), live_v.tolist()):
+        oracle.insert(k, v)
+    foracle = FreezeOracle(cfgs["LF-Freeze-M"])
+    new = distinct_keys(rng, 2 * BASE_ROUNDS * n + len(live_k))
+    new = new[~np.isin(new, live_k)]
+    fresh, absent = new[:BASE_ROUNDS * n // 4], new[BASE_ROUNDS * n // 4:]
+
+    states, fills = {}, {}
+    for name, cfg in cfgs.items():
+        st, status, secs = fill_baseline(name, cfg, live_k, live_v, dev)
+        want = (foracle.apply(np.ones(len(live_k), np.int32), live_k, live_v)
+                if name == "LF-Freeze-M" else np.ones(len(live_k), np.int8))
+        check(np.array_equal(status, want), f"{name} fill statuses")
+        states[name] = st
+        fills[name] = {"s": secs, "inserts_per_s": len(live_k) / secs,
+                       "needs_resize": int((status == -3).sum())}
+
+    # checked rounds: the same plan through all four structures
+    plan = traffic(rng, oracle, iter(fresh.tolist()), absent, BASE_ROUNDS,
+                   LOOKUPS_PER_ROUND, n)
+    zero_counts()
+    t, wf_secs = run_rounds(t, plan, dev)
+    launches = read_counts()
+    check(launches["fused_probe"] > 0 and launches["fused_apply"] > 0
+          and launches["probe"] == launches["grouped_apply"] == 0,
+          f"baselines path WF-Ext launches {launches}")
+    round_s = {"WF-Ext": wf_secs}
+    for name, cfg in cfgs.items():
+        update, lookup = baseline_ops(name, cfg)
+        st, secs = states[name], 0.0
+        for r, (q, found, vals, kinds, keys, values, status) in enumerate(
+                plan):
+            if name == "LF-Freeze-M":
+                found = np.array([k in foracle.d for k in q.tolist()])
+                vals = np.array([foracle.d.get(k, -1) for k in q.tolist()],
+                                np.int32)
+                status = foracle.apply(kinds, keys, values)
+            dq, dk, dkeys, dv = (torch.tensor(x, device=dev)
+                                 for x in (q, kinds, keys, values))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f, v = lookup(st, dq)
+            st, s = update(st, dk, dkeys, dv)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            check_round(name, r, (f, v, s), (found, vals, status))
+        states[name], round_s[name] = st, secs
+
+    # the directory-stable step per width: one fill serves every width
+    keyspace = np.r_[live_k[:BASE_KEYS // 2], absent]
+    timing, wf_launches = {}, {}
+    timed_errors = dict.fromkeys(round_s, False)
+    for lanes in BASE_LANES:
+        args = paper_step_args(rng, keyspace, lanes, dev)
+        writes = args[0].cpu().numpy() != 0
+
+        def fresh_share(status):
+            """Share of the step's writes that insert a fresh key or delete
+            a present one (status 1)."""
+            return float((status[writes] == 1).mean())
+        row = {}
+        for name, cfg in baseline_configs(lanes).items():
+            update, lookup = baseline_ops(name, cfg)
+
+            def step(st, update=update, lookup=lookup):
+                lookup(st, args[3])
+                return update(st, *args[:3])
+            ms, err, status = step_ms(step, states[name])
+            timed_errors[name] |= err
+            row[name] = {"ms_per_step": ms, "ops_per_s": 2 * lanes / ms * 1e3,
+                         "fresh_share": fresh_share(status)}
+
+        def wf_step(tt):
+            tt.lookup(args[3])
+            tt, res = tt.apply(*args[:3])
+            return tt, res.status
+        zero_counts()
+        ms, err, status = step_ms(wf_step, t)
+        timed_errors["WF-Ext"] |= err
+        counts = read_counts()
+        wf_launches[lanes] = {k: v / (BASE_ITERS + BASE_WARMUP)
+                              for k, v in counts.items()}
+        row["WF-Ext"] = {"ms_per_step": ms, "ops_per_s": 2 * lanes / ms * 1e3,
+                         "fresh_share": fresh_share(status),
+                         "launches_per_step": wf_launches[lanes],
+                         "nop_padded_to": n if lanes < n else None}
+        timing[lanes] = row
+
+    errors = {name: bool((t.state if name == "WF-Ext" else states[name])
+                         .error) or timed_errors[name] for name in round_s}
+    check(not any(errors.values()), f"baselines error flags {errors}")
+    emit({"phase": "baselines_path", "keys": len(live_k),
+          "universe": BASE_KEYS, "depth": BASE_DEPTH,
+          "configs": {k: dataclasses.asdict(c) for k, c in cfgs.items()},
+          "fill": fills, "checked_rounds": BASE_ROUNDS,
+          "round_lookups": LOOKUPS_PER_ROUND, "round_writes": n,
+          "status_mismatches": 0, "lookup_mismatches": 0,
+          "round_s": round_s, "wfext_launches": launches,
+          "error_flags": errors, "timing_iters": BASE_ITERS,
+          "step_ops_per_s": {f"{name}@{lanes}": timing[lanes][name][
+              "ops_per_s"] for lanes in BASE_LANES
+              for name in timing[lanes]},
+          "timing": timing, "reduced": {},
+          "note": "WF-Ext runs the hand-written CUDA kernels (fused_probe, "
+                  "fused_apply) and its PyTorch slow path; the baselines "
+                  "run eager PyTorch. Not the paper's comparison until a "
+                  "benchmark defines one.",
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2091,6 +2395,7 @@ def main() -> int:
     elastic_path(args.seed, dev)
     serving_path(rng, dev, args.seed)
     chaos_path(args.seed, dev)
+    baselines_path(t, rng, dev)
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

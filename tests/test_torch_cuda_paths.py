@@ -1,4 +1,4 @@
-"""The value-schema and elastic-policy paths on the card.
+"""The value-schema and elastic-policy paths, and the baselines, on the card.
 
 ``cuda``-marked: each runs a table under the ``cuda`` plan (the CUDA
 kernels) against the same table under the ``plain`` plan on the same op
@@ -6,7 +6,8 @@ stream, on the card — statuses, lookups (payloads or values) and
 ``to_dict`` equal, pool rows equal as sets (the lane-order kernel may put
 a fresh insert in another free slot of its bucket), and the schema
 table's slabs and liveness bitmap or the policy table's counters equal.
-They skip where there is no card; the GPU machine has no JAX, so this file
+The baselines (``core/baselines.py``) run one stream on the card and on
+the CPU: statuses, lookups and every state array equal. They skip where there is no card; the GPU machine has no JAX, so this file
 imports none:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_paths.py
@@ -214,3 +215,42 @@ def test_router_and_chaos_on_the_card(cuda):
     assert rep["ok"], rep["mismatch_examples"]
     assert set(rep["event_counts"]) == set(EVENT_KINDS)
     assert rep["events_skipped"] == 0
+
+
+@pytest.mark.cuda
+def test_baselines_on_the_card_equal_the_cpu(cuda):
+    """One stream through LF-Split, LF-Freeze-M and Lock on the card and on
+    the CPU: statuses, lookups and every state array equal."""
+    from repro_torch.core import baselines as BL
+
+    n = 64
+    rng = np.random.default_rng(9)
+    universe = np.unique(rng.integers(1, 2**31 - 1, size=4096))[:3000]
+    universe = rng.permutation(universe).astype(np.int32)
+    structs = {
+        "split": (BL.SplitConfig(depth=6, max_nodes=8192, n_lanes=n),
+                  BL.split_init, BL.split_update, BL.split_lookup),
+        "freeze": (BL.FreezeConfig(depth=6, bucket_size=8, pool_size=512,
+                                   n_lanes=n),
+                   BL.freeze_init, BL.freeze_update, BL.freeze_lookup),
+        "lock": (BL.LockConfig(depth=6, bucket_size=64, n_lanes=n),
+                 BL.lock_init, BL.lock_step, None),
+    }
+    for name, (cfg, init, update, lookup) in structs.items():
+        states = {d: init(cfg, d) for d in (cuda, torch.device("cpu"))}
+        for step in range(30):
+            kinds = np.ones(n, np.int32) if step < 10 else rng.integers(
+                1, 4 if lookup is None else 3, size=n).astype(np.int32)
+            args = [kinds, rng.choice(universe, size=n, replace=False),
+                    rng.integers(0, 2**31 - 1, size=n).astype(np.int32)]
+            outs = {}
+            for d, st in states.items():
+                res = update(cfg, st, *(torch.tensor(x, device=d)
+                                        for x in args))
+                states[d] = res[0]
+                outs[d] = list(res[1:]) + (
+                    [] if lookup is None else list(lookup(
+                        cfg, res[0], torch.tensor(universe, device=d))))
+                outs[d] += list(res[0])
+            for x, y in zip(*outs.values()):
+                assert torch.equal(x.cpu(), y), f"{name} step {step}"
