@@ -18,7 +18,11 @@ printing one JSON line:
    rows) and ``grouped_apply`` (4,096 lanes sorted by (bucket, lane) and in
    lane order, idle lanes on live buckets; 3 chunks and 17 lanes whose
    buckets span the chunk borders; every lane on one bucket), over carried
-   rounds, one line per case, the trash row untouched;
+   rounds, one line per case, the trash row untouched; then one case per
+   kernel at ``hash_shift = 2``, the sharded path's, at its shard pool
+   and widths (``shift_cases``: the fused kernels shift the hash
+   themselves, the unfused ones take bucket ids routed by the shifted
+   hash), with its own seeded generator;
 3. main path at full size through the ``Table`` facade:
    ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
    initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
@@ -89,9 +93,22 @@ printing one JSON line:
     batch, 90% lookups) timed at 16, 64 and 512 lanes: ops/s per
     (algorithm, lanes), WF-Ext's launches per step (its 16- and 64-op
     batches NOP-padded to 512). WF-Ext runs the CUDA kernels, the
-    baselines eager PyTorch.
+    baselines eager PyTorch;
+13. the sharded path: sharded placement (``core/dist.py``) with 4 shards
+    on the one card (``SHARD_SPEC``: per shard dmax 18, 2**18 pool rows,
+    depth 14, so the aggregate is the main geometry), filled with the main
+    table's live keys at 512 lanes — its image must equal the main
+    table's — then 64 rounds of the 90/10 mix and 16 timed write
+    transactions against the oracle, the invariants per shard, the union
+    content and the error flag; then a 4 -> 2 re-shard through the image
+    into ``SHARD2_SPEC`` (4,096 lanes, past the fused apply kernel) and 8
+    rounds there: preload and mixed rates beside the main path's, ms per
+    write transaction, restore items/s, and the launches by kernel on
+    each stage, which must be exactly one per shard per kernel call (the
+    fused kernels before the re-shard, the unfused ones after it).
 
-Then the ``nvidia-smi`` name/power line, the kernels line and, last,
+Then the ``nvidia-smi`` name/power line, the kernels line (with each
+kernel's launches on the sharded path beside the main path's) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -172,9 +189,30 @@ BASE_DEPTH = 17                     # log2(BASE_KEYS / 8)
 BASE_LANES = (16, 64, 512)
 BASE_ROUNDS = 16
 BASE_ITERS, BASE_WARMUP = 20, 3
+# the sharded path: sharded placement (core/dist.py) with its 4 shards on
+# the one card — per shard dmax 18 and 2**18 pool rows, so the aggregate is
+# the main geometry (20 hash bits, 2**20 rows, depth 16) — filled with the
+# main table's live keys at 512 lanes; then a 4 -> 2 re-shard through the
+# table image into 4,096-lane transactions (past the fused apply kernel),
+# at the aggregate depth 16 again
+SHARD_SPEC = dict(dmax=18, bucket_size=8, pool_size=2**18, n_lanes=512,
+                  initial_depth=14, placement="sharded", shard_bits=2)
+SHARD2_SPEC = dict(SHARD_SPEC, dmax=19, pool_size=2**19, n_lanes=4096,
+                   initial_depth=15, shard_bits=1)
+SHARD_ROUNDS = 64
+SHARD_TIMED = 16
+SHARD2_ROUNDS = 8
+# the hash_shift the kernel cases of phase 2 add: the sharded path's
+SHIFT = SHARD_SPEC["shard_bits"]
+
+
+# every phase's line, by phase name (phase 13 reads the main path's rates)
+LINES = {}
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        LINES[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -258,10 +296,10 @@ def distinct_keys(rng, m: int) -> np.ndarray:
     return rng.permutation(k)[:m].astype(np.int32)
 
 
-def route_np(keys, directory, dmax):
+def route_np(keys, directory, dmax, shift=0):
     from repro_torch.core.hashing import hash_np
-    return directory[(hash_np("fmix32", keys) >> np.uint32(32 - dmax))
-                     .astype(np.int64)]
+    return directory[(hash_np("fmix32", keys, shift)
+                      >> np.uint32(32 - dmax)).astype(np.int64)]
 
 
 def place_keys(pk, pv, keys, rows, limit, rng):
@@ -577,6 +615,102 @@ def kernel_checks(rng, dev):
             "fused_apply": (apply_mm, apply_err),
             "probe": (routed_mm, routed_err),
             "grouped_apply": (g_mm, g_err)}
+
+
+def shift_cases(rng, dev, B=8):
+    """The kernels at ``hash_shift = SHIFT``, the first non-zero value a
+    path passes them (the sharded path's shards drop the shard id's bits):
+    ``fused_probe`` and ``fused_apply`` hash and shift themselves; ``probe``
+    and ``grouped_apply`` take bucket ids routed by the shifted hash in
+    PyTorch. At the sharded path's own sizes: a shard's pool
+    (``SHARD_SPEC``'s 2**18 rows) under a directory at its initial depth
+    (14) of its dmax over shuffled rows, filled to about 60% by keys routed with the
+    shift; ``fused_probe`` takes a round's ``LOOKUPS_PER_ROUND`` queries
+    and ``probe`` the re-sharded rounds' ``WIDE_LOOKUPS``, the applies
+    ``SHARD_SPEC``'s and ``SHARD2_SPEC``'s lanes. Each kernel against its
+    plain version with the same shift, tolerance 0, one ``kernel_case``
+    line per kernel. Returns {kernel: (mismatches, max abs err)}."""
+    from repro_torch.kernels.apply import (fused_apply, fused_apply_plain,
+                                           grouped_apply, grouped_apply_plain)
+    from repro_torch.kernels.lookup import (fused_probe, fused_probe_plain,
+                                            probe, probe_plain)
+    dmax, depth, P = (SHARD_SPEC[k] for k in ("dmax", "initial_depth",
+                                              "pool_size"))
+    rows = rng.permutation(P)[: 1 << depth].astype(np.int32)
+    directory = rows[np.arange(1 << dmax) >> (dmax - depth)]
+    pk = np.full((P + 1, B), EMPTY, np.int32)
+    pv = np.zeros((P + 1, B), np.int32)
+    keys = distinct_keys(rng, int(0.6 * B * (1 << depth)))
+    placed = place_keys(pk, pv, keys, route_np(keys, directory, dmax, SHIFT),
+                        B, rng)
+    live, absent = keys[placed], keys[~placed]
+    q = rng.permutation(np.r_[live, absent[:live.size]]).astype(np.int32)
+    d_t = torch.tensor(directory, device=dev)
+    pk_t, pv_t = (torch.tensor(x[:-1], device=dev) for x in (pk, pv))
+    out = {}
+    for name, kernel, plain, width in (
+            ("fused_probe", fused_probe, fused_probe_plain,
+             LOOKUPS_PER_ROUND),
+            ("probe", probe, probe_plain, WIDE_LOOKUPS)):
+        qn = q[:width]
+        q_t = torch.tensor(qn, device=dev)
+        if name == "probe":
+            first, kw = torch.tensor(route_np(qn, directory, dmax, SHIFT)
+                                     .astype(np.int32), device=dev), {}
+        else:
+            first, kw = d_t, dict(dmax=dmax, hash_shift=SHIFT)
+        n_live = int(np.isin(qn, live).sum())
+        kf, kv = kernel(first, q_t, pk_t, pv_t, **kw)
+        pf, pvals = plain(first, q_t, pk_t, pv_t, **kw)
+        torch.cuda.synchronize()
+        mm = int((kf != pf).sum() + (kv != pvals).sum())
+        err = int((kv.long() - pvals.long()).abs().max())
+        found = int(kf.sum())
+        emit({"phase": "kernel_case", "kernel": name,
+              "case": f"shift{SHIFT}_b{B}", "hash_shift": SHIFT,
+              "queries": int(qn.size), "found": found,
+              "live_keys": n_live, "mismatches": mm,
+              "max_abs_err": err})
+        check(mm == 0, f"{name} shift{SHIFT}: disagrees with its plain "
+              f"version in {mm} outputs")
+        check(found == n_live, f"{name} shift{SHIFT}: found {found} of "
+              f"{n_live} live keys")
+        out[name] = (mm, err)
+
+    fr_t = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    n, m = SHARD_SPEC["n_lanes"], SHARD2_SPEC["n_lanes"]
+    hot = live[:4096]
+
+    def ops(width):
+        k = np.where(rng.random(width) < 0.5, rng.choice(hot, size=width),
+                     rng.choice(absent, size=width))
+        return [rng.integers(0, 3, size=width), k,
+                rng.integers(0, 2**31 - 1, size=width)]
+
+    cases = {
+        "fused_apply": (
+            lambda *a: fused_apply(d_t, fr_t, *a, dmax=dmax,
+                                   hash_shift=SHIFT),
+            lambda *a: fused_apply_plain(d_t, fr_t, *a, dmax=dmax,
+                                         hash_shift=SHIFT),
+            lambda: ops(n)),
+        "grouped_apply": (grouped_apply, grouped_apply_plain, lambda: (
+            lambda o: o + [route_np(o[1], directory, dmax, SHIFT)])(
+                ops(m)))}
+    for name, (fn, plain, make) in cases.items():
+        res = apply_case(fn, plain, pk, pv, [
+            [torch.tensor(np.asarray(x).astype(np.int32), device=dev)
+             for x in make()] for _ in range(4)], dev)
+        emit({"phase": "kernel_case", "kernel": name,
+              "case": f"shift{SHIFT}", "hash_shift": SHIFT, **res})
+        check(res["mismatches"] == 0, f"{name} shift{SHIFT}: disagrees with "
+              f"its plain version in {res['mismatches']} outputs")
+        check(res["trash_row_untouched"], f"{name} shift{SHIFT}: wrote the "
+              "trash row")
+        check({1, 0} <= set(res["statuses"]), f"{name} shift{SHIFT}: "
+              f"statuses {res['statuses']}")
+        out[name] = (res["mismatches"], res["max_abs_err"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2367,6 +2501,193 @@ def baselines_path(t, rng, dev):
     return t
 
 
+# ---------------------------------------------------------------------------
+# phase 13: sharded placement — four shards on the one card, then 4 -> 2
+
+
+def image_of(oracle: "Oracle"):
+    """The canonical image arrays of the oracle's content: keys and values
+    sorted by (full hash, key), as ``extract_image`` orders them."""
+    from repro_torch.core.hashing import hash_np
+    keys = np.fromiter(oracle.d, np.int32, len(oracle.d))
+    vals = np.fromiter(oracle.d.values(), np.int32, len(oracle.d))
+    order = np.lexsort((keys, hash_np("fmix32", keys)))
+    return keys[order], vals[order]
+
+
+def sharded_check(t, cfg, oracle, what):
+    """Per-shard invariants, the union content and the error flag."""
+    from repro_torch.core import table as T
+    from repro_torch.core.invariants import check_invariants, to_dict
+    snap = T.to_numpy(t.state)
+    check(not snap["error"].any(), f"{what}: error flag")
+    check_invariants(cfg, snap)
+    check(to_dict(cfg, snap) == oracle.d, f"{what}: content")
+    return snap["depth"].tolist()
+
+
+def sharded_path(t_main, rng, dev):
+    """The main table's live keys into a 4-shard table at 512 lanes (its
+    image must equal the main table's), ``SHARD_ROUNDS`` rounds of the
+    90/10 mix and ``SHARD_TIMED`` timed write transactions against the
+    oracle, then a 4 -> 2 re-shard through the image into 4,096-lane
+    transactions and ``SHARD2_ROUNDS`` rounds at that width; the launches
+    by kernel on each stage."""
+    from repro_torch.core.snapshot import extract_image
+    from repro_torch.table_api import Table, TableSpec
+
+    t_phase = time.perf_counter()
+    spec = TableSpec(**SHARD_SPEC, backend="cuda")
+    cfg = spec.table_config()
+    plan = spec.plan("cuda")
+    check(plan.backend == "cuda" and plan.fused_apply and plan.fused_lookup
+          and cfg.hash_shift == SHIFT, f"sharded plan {plan}, {cfg}")
+    image = extract_image(t_main)
+    n_items = image.n_items
+    perm = rng.permutation(n_items)
+    keys, vals = image.keys[perm], image.values[perm]
+    oracle = Oracle()
+    for k, v in zip(keys.tolist(), vals.tolist()):
+        oracle.insert(k, v)
+    new = distinct_keys(rng, 2**17)
+    new = new[~np.isin(new, image.keys)]
+    n_fresh = ((SHARD_ROUNDS + SHARD_TIMED) * SHARD_SPEC["n_lanes"]
+               + SHARD2_ROUNDS * SHARD2_SPEC["n_lanes"]) // 4
+    fresh, absent = iter(new[:n_fresh].tolist()), new[n_fresh:]
+
+    ts = Table.create(spec, device=dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    ts, res = ts.insert(torch.tensor(keys, device=dev),
+                        torch.tensor(vals, device=dev))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    pre_launches = read_counts()
+    pre_tx = ts.seq
+    check(bool((res.status == 1).all()), "sharded preload statuses")
+    img = extract_image(ts)
+    check(img.n_items == n_items and np.array_equal(img.keys, image.keys)
+          and np.array_equal(img.values, image.values),
+          "the sharded table's image differs from the main table's")
+
+    rounds = traffic(rng, oracle, fresh, absent, SHARD_ROUNDS,
+                     LOOKUPS_PER_ROUND, SHARD_SPEC["n_lanes"])
+    zero_counts()
+    ts, t_mix = run_rounds(ts, rounds, dev)
+    mix_launches = read_counts()
+    # timed write transactions, one synchronize each
+    writes = traffic(rng, oracle, fresh, absent, SHARD_TIMED, 0,
+                     SHARD_SPEC["n_lanes"])
+    secs = []
+    for *_, kinds, keys_, values, status in writes:
+        args = [torch.tensor(x, device=dev) for x in (kinds, keys_, values)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, res = ts.apply(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(np.array_equal(res.status.cpu().numpy(), status),
+              "sharded timed write statuses")
+    depth4 = sharded_check(ts, cfg, oracle, "sharded")
+    img4 = extract_image(ts)
+    want_k, want_v = image_of(oracle)
+    check(np.array_equal(img4.keys, want_k)
+          and np.array_equal(img4.values, want_v), "sharded image")
+
+    # the 4 -> 2 re-shard: save, restore into 4,096-lane transactions
+    spec2 = TableSpec(**SHARD2_SPEC, backend="cuda")
+    plan2 = spec2.plan("cuda")
+    check(plan2.backend == "cuda" and not plan2.fused_apply
+          and not plan2.fused_lookup, f"re-shard plan {plan2}")
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = ts.save(str(out_dir / "sharded.npz"))
+    zero_counts()
+    t0 = time.perf_counter()
+    t2 = Table.restore(path, spec2, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restore_launches = read_counts()
+    img2 = extract_image(t2)
+    check(np.array_equal(img2.keys, img4.keys)
+          and np.array_equal(img2.values, img4.values)
+          and img2.header["policy_counts"] == img4.header["policy_counts"],
+          "re-sharded image differs")
+    restore_tx = t2.seq
+    rounds2 = traffic(rng, oracle, fresh, absent, SHARD2_ROUNDS,
+                      WIDE_LOOKUPS, SHARD2_SPEC["n_lanes"])
+    zero_counts()
+    t2, t_mix2 = run_rounds(t2, rounds2, dev)
+    mix2_launches = read_counts()
+    depth2 = sharded_check(t2, spec2.table_config(), oracle, "re-sharded")
+    img2 = extract_image(t2)
+    want_k, want_v = image_of(oracle)
+    check(np.array_equal(img2.keys, want_k)
+          and np.array_equal(img2.values, want_v), "re-sharded image")
+
+    # one launch per shard per kernel call: the fused kernels before the
+    # re-shard, the unfused ones after it
+    s4, s2 = spec.n_shards, spec2.n_shards
+    fused = ("fused_probe", "fused_apply")
+    unfused = ("probe", "grouped_apply")
+    for what, launches, want in (
+            ("preload", pre_launches, {"fused_apply": s4 * pre_tx}),
+            ("mixed", mix_launches, {"fused_probe": s4 * SHARD_ROUNDS,
+                                     "fused_apply": s4 * SHARD_ROUNDS}),
+            ("restore", restore_launches,
+             {"grouped_apply": s2 * restore_tx}),
+            ("re-sharded mixed", mix2_launches,
+             {"probe": s2 * SHARD2_ROUNDS,
+              "grouped_apply": s2 * SHARD2_ROUNDS})):
+        got = {k: v for k, v in launches.items() if v}
+        check(got == want, f"sharded {what} launches {launches}, want "
+              f"{want}")
+    main = LINES["main_path"]
+    n_look = SHARD_ROUNDS * LOOKUPS_PER_ROUND
+    n_write = SHARD_ROUNDS * SHARD_SPEC["n_lanes"]
+    n_look2 = SHARD2_ROUNDS * WIDE_LOOKUPS
+    n_write2 = SHARD2_ROUNDS * SHARD2_SPEC["n_lanes"]
+    emit({"phase": "sharded_path", "spec": SHARD_SPEC,
+          "n_shards": s4, "image_items": n_items,
+          "image_equals_main": True, "preload_s": t_pre,
+          "preload_inserts_per_s": n_items / t_pre,
+          "main_preload_inserts_per_s": main["preload_inserts_per_s"],
+          "mixed_rounds": SHARD_ROUNDS, "lookups": n_look,
+          "writes": n_write, "mixed_s": t_mix,
+          "mixed_ops_per_s": (n_look + n_write) / t_mix,
+          "main_mixed_ops_per_s": main["mixed_ops_per_s"],
+          "ms_per_write_transaction": 1e3 * float(np.mean(secs)),
+          "ms_per_write_transaction_max": 1e3 * max(secs),
+          "timed_write_transactions": SHARD_TIMED,
+          "status_mismatches": 0, "lookup_mismatches": 0,
+          "error_flag": False, "depth_by_shard": depth4,
+          "size": len(oracle.d),
+          "launches_preload": pre_launches,
+          "launches_mixed": mix_launches,
+          "launches_per_transaction": {
+              k: v / SHARD_ROUNDS for k, v in mix_launches.items()},
+          "reshard": {
+              "spec": SHARD2_SPEC, "n_shards": s2,
+              "plan": {"fused_lookup": plan2.fused_lookup,
+                       "fused_apply": plan2.fused_apply},
+              "restore_s": restore_s,
+              "restore_items_per_s": img4.n_items / restore_s,
+              "restore_transactions": restore_tx,
+              "image_equal": True, "mixed_rounds": SHARD2_ROUNDS,
+              "mixed_s": t_mix2,
+              "mixed_ops_per_s": (n_look2 + n_write2) / t_mix2,
+              "depth_by_shard": depth2,
+              "launches_restore": restore_launches,
+              "launches_mixed": mix2_launches,
+              "launches_per_transaction": {
+                  k: v / SHARD2_ROUNDS for k, v in mix2_launches.items()}},
+          "reduced": {"mixed_rounds": [ROUNDS, SHARD_ROUNDS],
+                      "reshard_mixed_rounds": [WIDE_ROUNDS, SHARD2_ROUNDS]},
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return {k: pre_launches[k] + mix_launches[k] + restore_launches[k]
+            + mix2_launches[k] for k in pre_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2383,6 +2704,9 @@ def main() -> int:
     emit({"phase": "build", "build_s": build_s, "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     checks = kernel_checks(rng, dev)
+    for name, (mm, err) in shift_cases(np.random.default_rng(
+            [args.seed, SHIFT]), dev).items():
+        checks[name] = (checks[name][0] + mm, max(checks[name][1], err))
     t, launches, oracle, absent = main_path(rng, dev)
     tw, wide_launches, raw_restore_rate = wide_path(t, oracle, absent, rng,
                                                     dev)
@@ -2395,7 +2719,10 @@ def main() -> int:
     elastic_path(args.seed, dev)
     serving_path(rng, dev, args.seed)
     chaos_path(args.seed, dev)
-    baselines_path(t, rng, dev)
+    t = baselines_path(t, rng, dev)
+    sharded = sharded_path(t, rng, dev)
+    for k in kernels:
+        k["launches_sharded"] = sharded[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

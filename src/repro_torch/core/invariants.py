@@ -17,13 +17,26 @@ def _as_numpy(state) -> dict:
     return to_numpy(state) if isinstance(state, TableState) else state
 
 
+def _shards(s: dict) -> list:
+    """The per-shard dicts of a stacked state, or ``[s]`` for a local
+    one (a local directory is 1-d)."""
+    if s["directory"].ndim == 1:
+        return [s]
+    return [{k: v[j] for k, v in s.items()}
+            for j in range(s["directory"].shape[0])]
+
+
 def check_invariants(cfg: TableConfig, state, allow_error: bool = False):
     """Raises AssertionError with a descriptive message on violation.
 
     ``allow_error=True`` admits states whose error flag was set by a
     legitimate capacity/depth exhaustion; the structural invariants must
-    hold regardless."""
-    s = _as_numpy(state)
+    hold regardless. A stacked sharded state is checked per shard."""
+    for s in _shards(_as_numpy(state)):
+        _check_local(cfg, s, allow_error)
+
+
+def _check_local(cfg: TableConfig, s: dict, allow_error: bool) -> None:
     P, B = cfg.pool_size, cfg.bucket_size
     d = s["directory"].astype(np.int64)
     keys, live = s["keys"], s["live"]
@@ -93,9 +106,12 @@ def check_invariants(cfg: TableConfig, state, allow_error: bool = False):
 
 
 def to_dict(cfg: TableConfig, state) -> dict:
-    """Materialize the table's key→value map (test-side view)."""
-    s = _as_numpy(state)
-    rows = np.nonzero(s["live"][: cfg.pool_size])[0]
-    keys, vals = s["keys"][rows], s["vals"][rows]
-    occ = keys != EMPTY_KEY
-    return dict(zip(keys[occ].tolist(), vals[occ].tolist()))
+    """Materialize the table's key→value map (test-side view); for a
+    stacked sharded state, the union of the shards' maps."""
+    out = {}
+    for s in _shards(_as_numpy(state)):
+        rows = np.nonzero(s["live"][: cfg.pool_size])[0]
+        keys, vals = s["keys"][rows], s["vals"][rows]
+        occ = keys != EMPTY_KEY
+        out.update(zip(keys[occ].tolist(), vals[occ].tolist()))
+    return out

@@ -187,7 +187,8 @@ def resize_pressure(cfg: T.TableConfig, policy: ResizePolicy,
     A bucket contributes when it is *split-imminent* (live, unfrozen,
     within one item of the high watermark and still deepenable) or
     *merge-eligible* (live, above ``min_depth``, at or below half the low
-    watermark)."""
+    watermark). Elementwise over the state, so on a sharded table's
+    stacked state the fraction is taken over all shards' live buckets."""
     hi, lo = policy.thresholds(cfg.bucket_size)
     live = st.live            # trash row P is never live, so it drops out
     split_near = (live & ~st.frozen & (st.counts >= hi - 1)
@@ -201,7 +202,9 @@ def resize_pressure(cfg: T.TableConfig, policy: ResizePolicy,
 def wrap_apply_fn(policy: ResizePolicy, apply_fn):
     """Compose :func:`apply_policy` onto a combining transaction
     ``apply_fn(cfg, state, ops) -> (state, result)`` (the facade's single
-    wiring point)."""
+    wiring point; for sharded placement ``core/dist.py`` calls it per
+    shard, with the per-shard config, so each shard resizes its own
+    key-space region)."""
 
     def apply_with_policy(cfg, state, ops):
         state, res = apply_fn(cfg, state, ops)

@@ -19,21 +19,26 @@ canonical, layout-independent :class:`TableImage`:
   payload rows and is independent of handle allocation order and
   ``slab_capacity``;
 * **a versioned header** — readers are registered per version, so an
-  image from a *newer* writer fails with a clear error.
+  image from a *newer* writer fails with a clear error;
+* **placement-independent** — a sharded table's stacked state flattens
+  its shard axis (each shard is more pool rows of one logical table), and
+  the header's policy counters are summed over shards.
 
 Restore replays the image through the ordinary combining transaction:
 :func:`restore_from_image` builds a fresh table for the **target** spec —
 which may differ from the save spec in ``dmax``, ``pool_size``,
-``n_lanes``, ``slab_capacity`` or backend — and inserts the items through
-``Table.apply``, so every item re-routes through the directory math and
-the reactive splits. Infeasible targets (a ``dmax`` too shallow for the
-image's densest hash-prefix group, too few slots or slab rows, a value
-schema that differs from the image's) are rejected on the host before any
-device work.
+``n_lanes``, ``slab_capacity``, backend, placement or shard count (local
+→ sharded, sharded N → M, sharded → local) — and inserts the items
+through ``Table.apply``, so every item re-routes through hash → shard →
+directory and the reactive splits. Infeasible targets (a ``dmax`` too
+shallow for the image's densest hash-prefix group, too few slots or slab
+rows, a value schema that differs from the image's) are rejected on the
+host before any device work.
 
 Policy counters survive the round trip through the header: the elastic
 policy is detached during the load (the replay's splits must not count as
-its actions) and the image's counters are reinstalled after it. Per-lane
+its actions) and the image's counters are reinstalled after it (on shard
+0 of a sharded target, as the JAX package does). Per-lane
 transaction state (``applied_seq``, ``last_status``) is session state, not
 content. The save-side error flag is recorded as provenance but not
 re-imposed.
@@ -87,6 +92,13 @@ def _schema_header(spec: TableSpec):
     return [[f.name, f.dtype, list(f.shape)] for f in spec.value_schema]
 
 
+def _aggregate_bits(spec: TableSpec) -> int:
+    """Top hash bits the spec's addressing can spend: the shard id's
+    ``shard_bits`` before the per-shard directory's ``dmax``."""
+    extra = spec.shard_bits if spec.placement == "sharded" else 0
+    return spec.dmax + extra
+
+
 def _schema_key(schema) -> Optional[tuple]:
     """Hashable normal form of a schema header (or a spec's value_schema)."""
     if schema is None:
@@ -101,9 +113,12 @@ def extract_image(table) -> TableImage:
     copied to the host, then sorted by (full hash, key)."""
     spec = table.spec
     st = table.state
-    slot_mask = st.live[:, None] & (st.keys != EMPTY_KEY)
-    words = st.vals[slot_mask]
-    item_keys = st.keys[slot_mask].cpu().numpy().astype(np.int32)
+    B = spec.bucket_size
+    # a stacked sharded state: its shards are more pool rows
+    keys, vals = st.keys.reshape(-1, B), st.vals.reshape(-1, B)
+    slot_mask = st.live.reshape(-1)[:, None] & (keys != EMPTY_KEY)
+    words = vals[slot_mask]
+    item_keys = keys[slot_mask].cpu().numpy().astype(np.int32)
     order = np.lexsort((item_keys, hash_np(spec.hash_name, item_keys)))
     if spec.value_schema is None:
         values: Union[np.ndarray, Dict[str, np.ndarray]] = (
@@ -118,8 +133,9 @@ def extract_image(table) -> TableImage:
         "n_items": int(item_keys.shape[0]),
         "hash_name": spec.hash_name,
         "value_schema": _schema_header(spec),
-        "policy_counts": [int(x) for x in st.policy_counts.cpu().tolist()],
-        "error": bool(st.error),
+        "policy_counts": [int(x) for x in st.policy_counts.reshape(
+            -1, 2).sum(dim=0).cpu().tolist()],
+        "error": bool(st.error.any()),
         "saved_spec": {
             "placement": spec.placement,
             "shard_bits": spec.shard_bits,
@@ -248,7 +264,8 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
 
     Exact checks: the value schema must match field for field (name, dtype
     and shape); the densest group of keys sharing all of the target's
-    ``dmax`` top hash bits must fit one bucket — a larger group would
+    aggregate hash bits (``shard_bits + dmax``) must fit one bucket — a
+    larger group would
     OVERFLOW however the table splits; in schema mode the slab store must
     have a row per item; and the items must fit the pool's slots. Pool
     exhaustion depends on the split trajectory and is checked after the
@@ -264,7 +281,7 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
     if image.n_items == 0:
         return
 
-    bits = spec.dmax
+    bits = _aggregate_bits(spec)
     h = hash_np(spec.hash_name, image.keys)
     _, group_sizes = np.unique(h >> np.uint32(HASH_BITS - bits),
                                return_counts=True)
@@ -281,9 +298,9 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
         raise ValueError(
             f"restore target too shallow: {worst} keys share all "
             f"{bits} aggregate hash bits (shard_bits + dmax) but buckets "
-            f"hold {spec.bucket_size}; need dmax >= {need} for "
-            f"placement={spec.placement!r} (image has {image.n_items} "
-            "items)")
+            f"hold {spec.bucket_size}; need dmax >= "
+            f"{need - (bits - spec.dmax)} for placement="
+            f"{spec.placement!r} (image has {image.n_items} items)")
 
     if spec.value_schema is not None and image.n_items > spec.slab_rows:
         raise ValueError(
@@ -291,7 +308,7 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
             f"restore spec provides slab_rows={spec.slab_rows}; raise "
             "slab_capacity (or pool_size*bucket_size)")
 
-    capacity = spec.pool_size * spec.bucket_size
+    capacity = spec.n_shards * spec.pool_size * spec.bucket_size
     if image.n_items > capacity:
         raise ValueError(
             f"restore target too small: image has {image.n_items} items, "
@@ -308,7 +325,8 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
     ``"cuda"``) holding ``image``'s content: the items and their payloads
     go in as inserts through ``Table.apply``, one ``n_lanes``-wide
     transaction per chunk, with the elastic policy detached; then the
-    policy is reattached with the image's counters."""
+    policy is reattached with the image's counters (on shard 0 of a
+    sharded target: ``policy_stats`` sums the shards)."""
     from repro_torch.table_api import Table  # table_api imports this module
 
     check_restorable(image, spec)
@@ -334,9 +352,14 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
                 "(bucket-pool rows) or dmax and retry")
     counts = torch.tensor(image.header.get("policy_counts", [0, 0]),
                           dtype=torch.int32, device=table.device)
+    st = table.state
+    if spec.placement == "sharded":
+        st.policy_counts.zero_()
+        st.policy_counts[0] = counts
+    else:
+        st = st._replace(policy_counts=counts)
     spec.plan(table.device.type)
-    return table._replace(spec=spec, state=table.state._replace(
-        policy_counts=counts))
+    return table._replace(spec=spec, state=st)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
 """Declarative table specification: one object describing a table.
 
 ``TableSpec`` has the field names of the JAX package's spec
-(``repro/core/spec.py``). This port serves local placement with raw i32
-values or a **value schema**, the paper-reactive resize rule or an elastic
-:class:`~repro_torch.core.policy.ResizePolicy`, and saves and restores
-tables through the JAX package's image format (``core/snapshot.py``);
-``placement="sharded"`` and measured tile autotuning raise
-``NotImplementedError`` until they are ported. ``backend`` is ``"auto"``,
+(``repro/core/spec.py``). This port serves local placement and sharded
+placement (``core/dist.py``: the top ``shard_bits`` of the hash pick one
+of ``2**shard_bits`` shards, every shard on the table's one device) with
+raw i32 values or a **value schema**, the paper-reactive resize rule or an
+elastic :class:`~repro_torch.core.policy.ResizePolicy`, and saves and
+restores tables through the JAX package's image format
+(``core/snapshot.py``); measured tile autotuning raises
+``NotImplementedError`` until it is ported. ``backend`` is ``"auto"``,
 ``"plain"`` or ``"cuda"`` (see ``kernels/plan.py``); the spec resolves its
 kernel plan once per device type, when the first table on it is built, and
 every geometry has one.
@@ -39,6 +41,15 @@ from repro_torch.core import table as T
 from repro_torch.core.policy import ResizePolicy
 
 PLACEMENTS = ("local", "sharded")
+
+
+def refuse_sharded(placement: str, what: str) -> None:
+    """Raise ``NotImplementedError`` unless ``placement`` is local: ``what``
+    is ported for local placement only (its sharded half is not ported
+    yet)."""
+    if placement != "local":
+        raise NotImplementedError(
+            f"{what} is ported for placement='local' only")
 
 
 class ValueField(NamedTuple):
@@ -128,8 +139,10 @@ class TableSpec:
     use_fast_path: bool = True
 
     # --- placement -------------------------------------------------------
-    placement: str = "local"     # "local" ("sharded" is not ported yet)
-    shard_bits: int = 1
+    # (data_axis / model_axis name the JAX mesh's axes; every shard is on
+    # the table's one device here, so neither sizes anything)
+    placement: str = "local"     # "local" | "sharded"
+    shard_bits: int = 1          # sharded: 2**shard_bits table shards
     data_axis: str = "data"
     model_axis: str = "model"
 
@@ -148,13 +161,12 @@ class TableSpec:
         if self.placement not in PLACEMENTS:
             raise ValueError(f"placement {self.placement!r} not in "
                              f"{PLACEMENTS}")
-        for name, supported in (("placement", self.placement == "local"),
-                                ("autotune", self.autotune == "off")):
-            if not supported:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported to the "
-                    "PyTorch package yet (local placement, no measured "
-                    "autotuning)")
+        if self.placement == "sharded" and not 1 <= self.shard_bits <= 8:
+            raise ValueError(f"shard_bits {self.shard_bits} outside [1, 8]")
+        if self.autotune != "off":
+            raise NotImplementedError(
+                f"autotune={self.autotune!r} is not ported to the PyTorch "
+                "package yet (no measured autotuning)")
         if self.resize_policy is not None:
             if not isinstance(self.resize_policy, ResizePolicy):
                 raise TypeError(f"resize_policy must be a ResizePolicy, "
@@ -187,6 +199,11 @@ class TableSpec:
             return 0
         return self.slab_capacity or self.pool_size * self.bucket_size
 
+    @property
+    def n_shards(self) -> int:
+        """Table shards: ``2**shard_bits`` for sharded placement, else 1."""
+        return 1 << self.shard_bits if self.placement == "sharded" else 1
+
     def field_dtypes(self) -> dict:
         """``{field name: torch.dtype}`` of the value schema."""
         if self.value_schema is None:
@@ -203,10 +220,24 @@ class TableSpec:
         return chunks, chunks * self.n_lanes
 
     def table_config(self) -> T.TableConfig:
-        """The local-table config this spec resolves to."""
+        """The local-table config this spec resolves to. For sharded
+        placement this is the PER-SHARD config: the shard id consumes the
+        top ``shard_bits`` hash bits, and every shard sees the whole
+        ``n_lanes``-wide announced batch."""
+        shift = self.shard_bits if self.placement == "sharded" else 0
         return T.TableConfig(
             dmax=self.dmax, bucket_size=self.bucket_size,
             pool_size=self.pool_size, n_lanes=self.n_lanes,
-            hash_name=self.hash_name, hash_shift=0,
+            hash_name=self.hash_name, hash_shift=shift,
             initial_depth=self.initial_depth, max_rounds=self.max_rounds,
             use_fast_path=self.use_fast_path)
+
+    def dist_config(self):
+        """The :class:`~repro_torch.core.dist.DistConfig` of a sharded
+        spec: ``table_config()`` is its per-shard config (imported here:
+        ``core/dist.py`` imports the table module)."""
+        from repro_torch.core import dist as D
+        if self.placement != "sharded":
+            raise ValueError("dist_config needs placement='sharded'")
+        return D.DistConfig(shard_bits=self.shard_bits,
+                            local=self.table_config())

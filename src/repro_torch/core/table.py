@@ -187,7 +187,9 @@ def to_numpy(state: TableState) -> dict:
 
 def from_numpy_state(d: dict, device=None) -> TableState:
     """Inverse of :func:`to_numpy` (also takes the fields of a JAX
-    ``TableState`` as numpy arrays): every field onto ``device``."""
+    ``TableState`` as numpy arrays): every field onto ``device``. A sharded
+    table's state — the JAX package's or this port's — is the same fields
+    with a leading ``[n_shards]`` axis, and loads the same way."""
     dev = resolve_device(device)
     return TableState(**{name: torch.tensor(np.asarray(d[name]), device=dev)
                          for name in TableState._fields})
@@ -291,7 +293,7 @@ def _links_pairwise(cfg, ops, active, b_act, exist0, delta_of):
               & (b_act[:, None] == b_act[None, :]))
     same_bk = same_b & (ops.key[:, None] == ops.key[None, :])
 
-    prev = torch.where(same_bk & before, lj, -1).max(dim=1).values
+    prev = torch.where(same_bk & before, lj, -1).amax(dim=1)
     present = torch.where(prev >= 0,
                           ops.kind[prev.clamp(min=0).long()] == INS, exist0)
     delta = delta_of(present)

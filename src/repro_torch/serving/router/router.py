@@ -47,6 +47,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.spec import refuse_sharded
 from repro_torch.serving.router import queue as Q
 from repro_torch.serving.router.costmodel import CostModel, cost_model_for
 from repro_torch.serving.router.metrics import RouterMetrics
@@ -96,6 +97,7 @@ class Router:
         if spec.value_schema is not None:
             raise ValueError(
                 "the serving router routes the raw i32 value mode only")
+        refuse_sharded(spec.placement, "the serving router")
         self.table = table
         self.config = config
         self.clock = clock
@@ -315,6 +317,7 @@ class Router:
         predecessor serving."""
         from repro_torch.core import snapshot
 
+        refuse_sharded(new_spec.placement, "the serving router")
         depth_before = len(self.queues)
         image = snapshot.extract_image(self.table)
         self._emit("handover_begin", n_items=image.n_items,

@@ -10,9 +10,12 @@ the methods
 
 that accept **any batch length** (short batches are NOP-padded, long ones
 run as one ``n_lanes``-wide combining transaction per chunk) and route to
-the plain transaction or the CUDA kernels from **one dispatch point**
-(:func:`_raw_lookup` / :func:`_raw_apply`), chosen by the spec's plan. A
-spec's ``resize_policy`` composes onto the transaction there.
+the plain transaction or the CUDA kernels, locally or per shard
+(``core/dist.py``), from **one dispatch point** (:func:`_raw_lookup` /
+:func:`_raw_apply`), chosen by the spec's plan and placement. A spec's
+``resize_policy`` composes onto the transaction there (per shard for
+sharded placement). A sharded table keeps every shard on its one device,
+its state stacked on a leading ``[n_shards]`` axis.
 
 Value schemas (struct-of-slabs side store)
 ------------------------------------------
@@ -41,6 +44,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core import dist as D
 from repro_torch.core import snapshot
 from repro_torch.core import table as T
 from repro_torch.core.policy import (ResizePolicy, resize_pressure,
@@ -65,18 +69,26 @@ __all__ = [
 def _raw_lookup(table: "Table", state, queries):
     """Rule-A lookup of the i32 words under the table's plan: ``plain``
     runs ``table.lookup``, ``cuda`` the fused or the pre-routed probe
-    kernel (``kernels/ops.py``)."""
-    return kops.plan_lookup(table.plan(), table.config, state, queries)
+    kernel (``kernels/ops.py``); per shard for sharded placement."""
+    lookup_fn = functools.partial(kops.plan_lookup, table.plan())
+    if table.spec.placement == "sharded":
+        return D.dist_lookup(table.spec.dist_config(), state, queries,
+                             lookup_fn=lookup_fn)
+    return lookup_fn(table.config, state, queries)
 
 
 def _raw_apply(table: "Table", state, ops: OpBatch):
     """One combining transaction under the table's plan: ``plain`` runs
-    ``table.apply_batch``, ``cuda`` the fused or the grouped apply kernel.
-    ``spec.resize_policy`` composes onto it here: the policy's split and
-    merge passes run right after each transaction."""
+    ``table.apply_batch``, ``cuda`` the fused or the grouped apply kernel;
+    per shard for sharded placement. ``spec.resize_policy`` composes onto
+    it here: the policy's split and merge passes run right after each
+    transaction, on each shard's own state."""
     apply_fn = functools.partial(kops.plan_apply, table.plan())
     if table.spec.resize_policy is not None:
         apply_fn = wrap_apply_fn(table.spec.resize_policy, apply_fn)
+    if table.spec.placement == "sharded":
+        return D.dist_apply_batch(table.spec.dist_config(), state, ops,
+                                  apply_fn=apply_fn)
     return apply_fn(table.config, state, ops)
 
 
@@ -112,8 +124,12 @@ class Table:
 
     @classmethod
     def create(cls, spec: TableSpec, device=None) -> "Table":
-        """An empty table for ``spec`` on ``device`` (default ``"cuda"``)."""
+        """An empty table for ``spec`` on ``device`` (default ``"cuda"``);
+        a sharded spec's shards all go on ``device``."""
         dev = resolve_device(device)
+        if spec.placement == "sharded":
+            return cls.from_state(spec, D.init_dist_table(
+                spec.dist_config(), spec.n_lanes, dev))
         return cls.from_state(spec, T.init_table(spec.table_config(), dev))
 
     @classmethod
@@ -145,6 +161,7 @@ class Table:
 
     @property
     def config(self) -> T.TableConfig:
+        """The local, or per-shard, ``TableConfig`` (tests, invariants)."""
         return self.spec.table_config()
 
     # -- reads -------------------------------------------------------------
@@ -154,11 +171,17 @@ class Table:
         bool[m], and the payload dict (zeros where absent) in schema mode
         or the i32 word (-1 where absent), on the table's device."""
         q = self._i32(keys)
-        if q.shape[0] == 0:
+        m = q.shape[0]
+        if m == 0:
             found = torch.zeros(0, dtype=torch.bool, device=self.device)
             word = torch.zeros(0, dtype=torch.int32, device=self.device)
         else:
+            if self.spec.placement == "sharded":
+                # a whole number of n_lanes, as the JAX facade pads for its
+                # data axis
+                q = _pad(q, self.spec.plan_batch(m)[1])
             found, word = _raw_lookup(self, self.state, q)
+            found, word = found[:m], word[:m]
         if self.spec.value_schema is None:
             return found, word
         cap = self.spec.slab_rows
@@ -172,20 +195,23 @@ class Table:
         return found, out
 
     def size(self) -> torch.Tensor:
-        """Live item count (an O(pool) read of the occupancy counts)."""
+        """Live item count (an O(pool) read of the occupancy counts; summed
+        over shards)."""
         return T.table_size(self.state)
 
     def depth(self) -> torch.Tensor:
-        """Logical directory depth."""
-        return self.state.depth
+        """Logical directory depth (the max over shards)."""
+        return self.state.depth.max()
 
     def policy_stats(self) -> dict:
         """Cumulative elastic-policy actions and the live backpressure
         signal, as ``{"splits", "merges", "pressure"}`` device scalars.
-        Reactive overflow splits are not counted; ``pressure`` is
-        :func:`~repro_torch.core.policy.resize_pressure`. All three are
-        zeros when ``spec.resize_policy`` is None."""
-        pc = self.state.policy_counts
+        The counters are summed over shards; reactive overflow splits are
+        not counted; ``pressure`` is
+        :func:`~repro_torch.core.policy.resize_pressure`, over all shards'
+        live buckets. All three are zeros when ``spec.resize_policy`` is
+        None."""
+        pc = self.state.policy_counts.reshape(-1, 2).sum(dim=0)
         pol = self.spec.resize_policy
         pressure = (resize_pressure(self.config, pol, self.state)
                     if pol is not None else
@@ -233,7 +259,7 @@ class Table:
             # empty batch: no transaction, no seq tick
             return self, BatchResult(
                 status=torch.zeros(0, dtype=torch.int8, device=self.device),
-                error=self.state.error)
+                error=self.state.error.any())
         n = self.spec.n_lanes
         n_chunks, padded = self.spec.plan_batch(m)
         kinds, keys = _pad(kinds, padded), _pad(keys, padded)   # NOP == 0
@@ -247,12 +273,15 @@ class Table:
             t, status = t._apply_chunk(kinds[lanes], keys[lanes], chunk)
             statuses.append(status)
         status = torch.cat(statuses)[:m]
-        return t, BatchResult(status=status, error=t.state.error)
+        return t, BatchResult(status=status, error=t.state.error.any())
 
     def merge(self, parent_prefix: int, parent_depth: int):
         """Merge the two buddy buckets of a would-be parent (paper §4.5).
-        Returns ``(table', ok)``; payload handles travel with their keys,
-        so the slabs are untouched."""
+        Local placement only. Returns ``(table', ok)``; payload handles
+        travel with their keys, so the slabs are untouched."""
+        if self.spec.placement != "local":
+            raise NotImplementedError(
+                "merge is shard-local; run it per shard (placement='local')")
         st, ok = T.merge_buddies(self.config, self.state, parent_prefix,
                                  parent_depth)
         return self._replace(state=st), ok

@@ -1,6 +1,8 @@
 """YCSB-style workloads for the port: generators, phased traces, replay.
 
-The JAX package's ``repro.workloads`` for local placement:
+The JAX package's ``repro.workloads``; the registry and replay serve
+both placements, ``serve_closed_loop`` and the chaos harness local
+placement only:
 
 * :mod:`repro_torch.workloads.generators` and
   :mod:`repro_torch.workloads.trace` — copies of the JAX package's seeded

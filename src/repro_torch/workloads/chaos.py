@@ -68,6 +68,7 @@ import numpy as np
 
 from repro_torch.core.policy import ResizePolicy
 from repro_torch.core.reference import content_digest
+from repro_torch.core.spec import refuse_sharded
 from repro_torch.workloads.generators import DEL, INS, NOP
 from repro_torch.workloads.replay import ReplayMismatch, oracle_for
 from repro_torch.workloads.scenarios import POLICY, get_scenario
@@ -169,6 +170,7 @@ def _backend_candidates(spec) -> Tuple[str, ...]:
 
 def chaos_setup(
     name: str,
+    placement: str = "local",
     seed: int = 0,
     scale: float = 1.0,
     ops: Optional[int] = None,
@@ -181,7 +183,10 @@ def chaos_setup(
     runs additionally get capacity-aware sizing — a wider key universe
     and deeper hash bits with ~2 levels of headroom over the peak live
     set (keeping worst-case hash groups far below ``bucket_size``, so
-    OVERFLOW stays a non-event) and a bucket pool sized for that peak."""
+    OVERFLOW stays a non-event) and a bucket pool sized for that peak.
+    ``placement`` must be ``"local"``: a sharded one raises
+    ``NotImplementedError``."""
+    refuse_sharded(placement, "the chaos harness")
     if ops is not None:
         _, base_trace = get_scenario(name, seed=seed)
         base_est = sum(p.steps * p.batch for p in base_trace.phases)
@@ -241,6 +246,7 @@ def chaos_replay(
     from repro_torch.core import snapshot as S
     from repro_torch.table_api import Table
 
+    refuse_sharded(spec.placement, "the chaos harness")
     if spec.value_schema is not None:
         raise ValueError("chaos drives the raw i32 value mode")
     if oracle not in ("streaming", "both"):

@@ -1,8 +1,8 @@
 """Trace replayer: run a workload through the facade, check it against the
 paper-literal sequential oracle, and report what the elastic policy did.
 
-The port of ``repro/workloads/replay.py`` for local placement: the same
-checks and the same report, on a ``repro_torch`` table on one device.
+The port of ``repro/workloads/replay.py``: the same checks and the same
+report, on a ``repro_torch`` table (local or sharded) on one device.
 
 The replayer is the differential harness of the churn engine. Every step it
 
@@ -18,7 +18,8 @@ The replayer is the differential harness of the churn engine. Every step it
 Phases whose name starts with ``snapshot_restore`` additionally **kill and
 revive the table** on entry: the live handle is serialized to a durable
 image on disk (``Table.save``), dropped, and restored (``Table.restore``,
-optionally under a different ``restore_spec`` — another geometry),
+optionally under a different ``restore_spec`` — another geometry,
+placement or shard count: the re-shard path),
 while the oracle runs uninterrupted. Every subsequent differential
 check is therefore parity evidence for the snapshot subsystem itself, and
 the depth trajectory after the revive proves the restored table still
@@ -71,14 +72,16 @@ class ReplayMismatch(AssertionError):
 
 
 def oracle_for(spec, kind: str = "streaming"):
-    """Build the sequential oracle matching ``spec``'s addressing (``dmax``
-    top hash bits). ``kind`` is ``"streaming"`` or ``"materializing"`` —
-    statuses and content are identical; see the module docstring for the
-    trade-off."""
+    """Build the sequential oracle matching ``spec``'s aggregate addressing
+    (``dmax + shard_bits`` top hash bits: a sharded table's shard id
+    consumes the top ``shard_bits``). ``kind`` is ``"streaming"`` or
+    ``"materializing"`` — statuses and content are identical; see the
+    module docstring for the trade-off."""
     if kind not in ("streaming", "materializing"):
         raise ValueError(f"oracle kind {kind!r}")
     cls = SeqExtHash if kind == "materializing" else StreamingOracle
-    return cls(dmax=spec.dmax, bucket_size=spec.bucket_size,
+    extra = spec.shard_bits if spec.placement == "sharded" else 0
+    return cls(dmax=spec.dmax + extra, bucket_size=spec.bucket_size,
                hash_name=spec.hash_name)
 
 
@@ -100,7 +103,8 @@ def replay(
     ``check=False`` skips the oracle entirely (benchmark mode: no per-step
     host sync beyond the ``depth_every`` sampling). ``restore_spec``
     (default: ``spec``) is the target spec for ``snapshot_restore`` phase
-    revives — pass a different one to revive into another geometry.
+    revives — pass a different one to revive into another geometry or
+    placement (re-shard mid-trace).
     ``oracle``
     selects the reference implementation (see module docstring):
     ``"streaming"`` | ``"materializing"`` | ``"both"``. Returns the
@@ -182,7 +186,7 @@ def replay(
             if step.phase.startswith("snapshot_restore"):
                 # kill & revive: durable image round trip through disk,
                 # while the oracle (the surviving truth) runs uninterrupted
-                error_seen |= bool(table.state.error)
+                error_seen |= bool(table.state.error.any())
                 with tempfile.TemporaryDirectory() as td:
                     path = table.save(os.path.join(td, "table.npz"))
                     del table
@@ -350,7 +354,7 @@ def replay(
             "decreases": decreases,
             "trajectory": depth_traj,
         },
-        "error_flag": error_seen | bool(table.state.error),
+        "error_flag": error_seen | bool(table.state.error.any()),
         "snapshot_restores": snapshot_restores,
         "phases": phase_rows,
     }

@@ -4,8 +4,7 @@ The JAX package's registry (``repro/workloads/scenarios.py``) on the
 port's ``TableSpec`` and ``ResizePolicy``: the same names, traces, specs
 and ``POLICY``. Each scenario couples a :class:`Trace` (what traffic looks
 like) with the :class:`TableSpec` knobs it is meant to stress (how the
-table is built). Local placement only: ``placement="sharded"`` raises
-``NotImplementedError``, as the port's spec does. The classes:
+table is built), for either placement. The classes:
 
 * ``uniform``      — uniform keys, YCSB-A mix: the paper's directory-stable
   regime, policy mostly idle (baseline sanity);
@@ -23,8 +22,8 @@ table is built). Local placement only: ``placement="sharded"`` raises
   keep auto-splitting AND auto-merging, and every post-revive check is
   differential parity evidence for the snapshot subsystem;
 * ``chaos_churn`` / ``chaos_reshard`` — the fault-injection substrate of
-  the JAX package's chaos harness (``repro/workloads/chaos.py``, not
-  ported yet): long multi-direction churn traces whose
+  the chaos harness (``workloads/chaos.py``, local placement): long
+  multi-direction churn traces whose
   phase plateaus give injected events (kill/revive, N→M re-shard, policy
   flaps, router handover, torn saves, backend swaps) a full spread of
   occupancy regimes to land in. Replayed plain they are ordinary parity
@@ -39,7 +38,7 @@ step counts for benchmark runs without touching the op stream's shape.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 from repro_torch.core.policy import ResizePolicy
 from repro_torch.core.spec import TableSpec
@@ -192,3 +191,8 @@ def get_scenario(
     phases = _scaled(_TRACES[name](), scale)
     trace = Trace(name=name, phases=phases, universe=_UNIVERSE, seed=seed)
     return _spec(placement, policy), trace
+
+
+def scenario_matrix() -> Dict[str, Tuple[str, ...]]:
+    """The acceptance matrix: scenario class x placement."""
+    return {name: ("local", "sharded") for name in SCENARIOS}

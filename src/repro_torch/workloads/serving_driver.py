@@ -37,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.reference import SeqExtHash
+from repro_torch.core.spec import refuse_sharded
 from repro_torch.workloads.generators import LiveSet, OpMix, YCSB_MIXES
 
 
@@ -118,6 +119,10 @@ def serve_closed_loop(
     """
     from repro_torch.serving.router import DEL, INS, Router, RouterConfig
     from repro_torch.table_api import Table
+
+    for s in (spec, handover_spec):
+        if s is not None:
+            refuse_sharded(s.placement, "serve_closed_loop")
 
     if isinstance(mix, str):
         mix = YCSB_MIXES[mix]

@@ -7,8 +7,12 @@ stream, on the card — statuses, lookups (payloads or values) and
 a fresh insert in another free slot of its bucket), and the schema
 table's slabs and liveness bitmap or the policy table's counters equal.
 The baselines (``core/baselines.py``) run one stream on the card and on
-the CPU: statuses, lookups and every state array equal. They skip where there is no card; the GPU machine has no JAX, so this file
-imports none:
+the CPU: statuses, lookups and every state array equal. Sharded tables
+(``core/dist.py``, 2 and 4 shards, fused and unfused widths, raw and
+with a value schema and the policy) run one stream on the card and on the
+CPU: statuses, lookups and content equal, and every per-shard state array
+equal with pool rows compared as sets. They skip where there is no card;
+the GPU machine has no JAX, so this file imports none:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_paths.py
 """
@@ -254,3 +258,58 @@ def test_baselines_on_the_card_equal_the_cpu(cuda):
                 outs[d] += list(res[0])
             for x, y in zip(*outs.values()):
                 assert torch.equal(x.cpu(), y), f"{name} step {step}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard_bits, lanes, extra", [
+    (2, 512, {}),
+    (1, 1100, {}),
+    (2, 64, dict(value_schema=SCHEMA, resize_policy=POLICY)),
+])
+def test_sharded_streams_on_the_card_equal_the_cpu(cuda, shard_bits, lanes,
+                                                   extra):
+    """A sharded table on the card (the kernels per shard: fused at 512 and
+    64 lanes, unfused at 1,100) against the same spec on the CPU (the
+    plain plan)."""
+    geom = dict(dmax=12, bucket_size=8, pool_size=2048, n_lanes=lanes,
+                placement="sharded", shard_bits=shard_bits, **extra)
+    ts = {d: Table.create(TableSpec(**geom), device=d)
+          for d in (cuda, torch.device("cpu"))}
+    assert ts[cuda].plan().backend == "cuda"
+    assert ts[cuda].plan().fused_apply == (lanes <= 1024)
+    rng = np.random.default_rng(shard_bits + lanes)
+    universe = rng.integers(1, 2**31 - 1, size=6000).astype(np.int32)
+    for step in range(24):
+        m = int(rng.integers(lanes // 2, 2 * lanes))
+        kinds = rng.choice([0, 1, 1, 2], size=m).astype(np.int32)
+        keys = rng.choice(universe, size=m)
+        vals = rng.integers(0, 2**31 - 1, size=m).astype(np.int32)
+        q = rng.choice(universe, size=3 * lanes)
+        outs = {}
+        for d, t in ts.items():
+            t, res = t.apply(kinds, keys, payload(vals) if "value_schema"
+                             in extra else vals)
+            ts[d] = t
+            found, got = t.lookup(q)
+            outs[d] = [res.status, found, t.state.policy_counts] + (
+                [got[k] for k in sorted(got)] if isinstance(got, dict)
+                else [got])
+        for x, y in zip(*outs.values()):
+            assert torch.equal(x.cpu(), y), f"step {step}"
+    t_gpu, t_cpu = ts.values()
+    check_invariants(t_gpu.config, t_gpu.state)
+    assert to_dict(t_gpu.config, t_gpu.state) == to_dict(t_cpu.config,
+                                                         t_cpu.state)
+    a, b = to_numpy(t_gpu.state), to_numpy(t_cpu.state)
+    P = geom["pool_size"]
+    for f in a:
+        x, y = a[f], b[f]
+        if f in ("keys", "vals"):
+            order_x = np.argsort(a["keys"][:, :P], -1)
+            order_y = np.argsort(b["keys"][:, :P], -1)
+            x = np.take_along_axis(x[:, :P], order_x, -1)
+            y = np.take_along_axis(y[:, :P], order_y, -1)
+        elif x.ndim >= 2 and x.shape[1] == P + 1:
+            x, y = x[:, :P], y[:, :P]
+        np.testing.assert_array_equal(x, y, err_msg=f)
+    assert not bool(t_gpu.state.error.any())

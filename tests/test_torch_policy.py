@@ -7,8 +7,11 @@ drain that merges and shrinks the depth, the hysteresis no-thrash bound,
 the frozen retry through a merge window, ``policy_stats`` and seeded random
 op streams — with every state array equal to the JAX package's after
 every transaction (the trash rows excepted). The policy counters survive a
-snapshot, and elasticity resumes after it. The ``cuda`` plan on the card
-is held against the ``plain`` plan in ``test_torch_cuda_paths.py``.
+snapshot, and elasticity resumes after it. On a sharded table the policy
+runs per shard: each shard equals a lone per-shard table driven with its
+own lanes. The ``cuda`` plan on the card is held against the ``plain``
+plan in ``test_torch_cuda_paths.py``; the JAX sharded table's counters
+and pressure in ``test_torch_dist.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -309,3 +312,61 @@ def test_policy_counters_survive_snapshot(tmp_path):
     after = stats(revived.t)
     assert after[1] > before[1], "elasticity resumes after the revive"
     check_invariants(revived.t.config, revived.t.state)
+
+
+def test_policy_runs_per_shard():
+    """Fill then drain a 2-shard table with the scenarios' policy: each
+    shard's state equals a lone per-shard table (``hash_shift`` 1) driven
+    through the same policy with only its own lanes, array for array; both
+    shards split and merge, the depth shrinks, ``policy_stats`` sums the
+    shards' counters and ``pressure`` is taken over all their live
+    buckets."""
+    from repro_torch.core import dist as D
+    from repro_torch.core.policy import resize_pressure, wrap_apply_fn
+
+    pol = ResizePolicy(**SCENARIO_POLICY)
+    spec = TableSpec(**PGEOM, placement="sharded", shard_bits=1,
+                     resize_policy=pol)
+    lcfg = spec.table_config()
+    t = Table.create(spec, device="cpu")
+    lones = [T.init_table(lcfg, "cpu") for _ in range(spec.n_shards)]
+    apply_fn = wrap_apply_fn(pol, T.apply_batch)
+    rng = np.random.default_rng(4)
+    live, depth_peak = set(), 0
+    for step in range(60):
+        if step < 30:
+            keys = rng.integers(1, 2**31 - 1, size=16).astype(np.int32)
+            kinds = np.ones(16, np.int32)
+        else:
+            pool = sorted(live) or [1]
+            keys = rng.choice(pool, size=16).astype(np.int32)
+            kinds = np.full(16, 2, np.int32)
+        live = (live | set(keys.tolist()) if step < 30
+                else live - set(keys.tolist()))
+        t, res = t.apply(kinds, keys, keys)
+        dest = D._dest_shard(spec.dist_config(), torch.from_numpy(keys))
+        for j in range(spec.n_shards):
+            mine = dest == j
+            ops = T.OpBatch(
+                kind=torch.where(mine, torch.from_numpy(kinds), T.NOP),
+                key=torch.from_numpy(keys), value=torch.from_numpy(keys),
+                seq=torch.full((16,), step + 1, dtype=torch.int32))
+            lones[j], r = apply_fn(lcfg, lones[j], ops)
+            np.testing.assert_array_equal(res.status[mine].numpy(),
+                                          r.status[mine].numpy())
+        depth_peak = max(depth_peak, int(t.depth()))
+    got = to_numpy(t.state)
+    for j, lone in enumerate(lones):
+        for f, x in to_numpy(lone).items():
+            np.testing.assert_array_equal(got[f][j], x, err_msg=f"{j}: {f}")
+        assert min(lone.policy_counts.tolist()) > 0, j
+    check_invariants(t.config, t.state)
+    st = t.policy_stats()
+    assert [int(st["splits"]), int(st["merges"])] == np.sum(
+        [lone.policy_counts.tolist() for lone in lones], axis=0).tolist()
+    assert int(t.depth()) < depth_peak
+    n_live = [int(lone.live.sum()) for lone in lones]
+    n_near = sum(round(float(resize_pressure(lcfg, pol, lone)) * n)
+                 for lone, n in zip(lones, n_live))
+    want = torch.tensor(n_near, dtype=torch.float32) / sum(n_live)
+    assert float(st["pressure"]) == float(want)

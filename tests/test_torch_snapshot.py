@@ -12,7 +12,11 @@ Here, on the CPU:
 * images are layout-independent: different op histories and a restore
   into another geometry (a wide-lane spec included) re-save identically;
 * the rejections (``check_restorable``), the version and magic errors and
-  a torn save through the fault hook behave as in ``tests/test_snapshot.py``.
+  a torn save through the fault hook behave as in ``tests/test_snapshot.py``;
+* re-sharding: local → 4 shards → 2 shards → local, raw and with a value
+  schema, keeps the content and the image, and a sharded target is judged
+  by its aggregate ``shard_bits + dmax`` bits and ``n_shards`` pools, with
+  the JAX package's messages.
 """
 import jax
 import jax.numpy as jnp
@@ -284,3 +288,87 @@ def test_restore_without_device_needs_cuda(tmp_path):
     path = t.save(str(tmp_path / "t.npz"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Table.restore(path, TableSpec(**GEOM))
+
+
+@pytest.mark.parametrize("schema", [None, {"page": "int32",
+                                           "score": ("float32", (2,))}])
+def test_reshard_round_trip_local_4_2_local(tmp_path, schema):
+    """The same items through local → 4 shards → 2 shards (a wide-lane
+    spec) → local: content, payloads and image equal at every stage, the
+    invariants hold per shard, and the policy counters ride along."""
+    specs = [
+        TableSpec(**GEOM, value_schema=schema),
+        TableSpec(dmax=7, bucket_size=4, pool_size=128, n_lanes=16,
+                  placement="sharded", shard_bits=2, value_schema=schema),
+        TableSpec(dmax=8, bucket_size=4, pool_size=256, n_lanes=1100,
+                  placement="sharded", shard_bits=1, value_schema=schema),
+        TableSpec(**GEOM, value_schema=schema),
+    ]
+    t = Table.create(specs[0], device="cpu")
+    want = {}
+    for kinds, keys, vals in op_stream(21):
+        pay = vals if schema is None else {
+            "page": vals, "score": np.stack([keys / 2, vals / 3],
+                                            -1).astype(np.float32)}
+        t, _ = t.apply(kinds, keys, pay)
+        for c, k, v in zip(kinds.tolist(), keys.tolist(), vals.tolist()):
+            if c == 1:
+                want[k] = v
+            else:
+                want.pop(k, None)
+    t = Table.from_state(specs[0], t.state._replace(
+        policy_counts=torch.tensor([5, 3], dtype=torch.int32)),
+        seq=t.seq, slabs=t.slabs, slab_live=t.slab_live)
+    first = S.extract_image(t)
+    keys = np.fromiter(want, np.int32)
+    for i, spec in enumerate(specs[1:]):
+        path = t.save(str(tmp_path / f"{i}.npz"))
+        t = Table.restore(path, spec, device="cpu")
+        check_invariants(t.config, t.state)
+        img = S.extract_image(t)
+        np.testing.assert_array_equal(img.keys, first.keys)
+        if schema is None:
+            np.testing.assert_array_equal(img.values, first.values)
+            assert to_dict(t.config, t.state) == want
+        else:
+            for f in first.values:
+                np.testing.assert_array_equal(img.values[f], first.values[f])
+        assert img.header["policy_counts"] == [5, 3]
+        found, vals = t.lookup(keys)
+        got = vals if schema is None else vals["page"]
+        assert found.all() and got.tolist() == list(want.values())
+        if spec.placement == "sharded":
+            assert t.state.keys.shape[0] == spec.n_shards
+            assert t.state.policy_counts[0].tolist() == [5, 3]
+            assert int(t.state.policy_counts[1:].abs().sum()) == 0
+
+
+def test_sharded_restore_rejections_use_aggregate_bits(tmp_path):
+    """A sharded target spends ``shard_bits`` of its addressing on the
+    shard id: 6 identity-hash keys sharing their top 4 bits need
+    ``dmax >= 8 - shard_bits``, as the JAX package says; capacity counts
+    every shard's pool."""
+    ti = Table.create(TableSpec(dmax=8, bucket_size=4, pool_size=64,
+                                n_lanes=16, hash_name="identity"),
+                      device="cpu")
+    kk = ((np.uint32(0xA) << 28)
+          | (np.arange(6, dtype=np.uint32) << 22)).astype(np.int32)
+    ti, _ = ti.insert(kk, kk)
+    path = ti.save(str(tmp_path / "i.npz"))
+    kw = dict(bucket_size=4, pool_size=64, n_lanes=16, hash_name="identity",
+              placement="sharded", shard_bits=2)
+    for restore, spec in ((Table.restore, TableSpec), (JaxTable.restore,
+                                                       JaxSpec)):
+        with pytest.raises(ValueError, match="too shallow.*need dmax >= 6 "
+                           "for placement='sharded'"):
+            restore(path, spec(dmax=3, **kw))
+    t = Table.restore(path, TableSpec(dmax=6, **kw), device="cpu")
+    assert to_dict(t.config, t.state) == dict(zip(kk.tolist(), kk.tolist()))
+    # 6 items: one 4-slot row caps a local target at 4, four shards' rows
+    # at 16 (the check counts slots; where the keys land is the replay's)
+    image = S.load_image(path)
+    one_row = dict(kw, pool_size=1)
+    S.check_restorable(image, TableSpec(dmax=6, **one_row))
+    with pytest.raises(ValueError, match="too small"):
+        S.check_restorable(image, TableSpec(
+            dmax=8, **dict(one_row, placement="local")))

@@ -4,15 +4,25 @@
   ``repro.workloads`` for every op mix and key distribution;
 * the copied oracles give the same statuses and content digests;
 * the scenario registry has the JAX package's names, traces, specs and
-  policy, and its sharded entries raise;
+  policy, for both placements;
 * ``phased_drain``, ``mixed_churn`` and ``snapshot_restore`` replay through
   the port (``plain`` plan, on the CPU) at a reduced ``scale`` with no
   mismatch against both oracles, prove elasticity (depth decreases and
   policy merges), and report the same depth trajectory and policy counters
   as the JAX replay (``backend="xla"``) of the same trace; every local
-  scenario in the registry replays through the port.
+  scenario in the registry replays through the port;
+* every scenario replays through a sharded port table with no mismatch
+  against both oracles (aggregate ``dmax + shard_bits`` bits), also when
+  the revives move it to another shard count or placement; and a sharded
+  replay's depth trajectory and policy counters equal the JAX sharded
+  table's, driven one ``n_lanes`` chunk per call over the same trace in a
+  subprocess with 8 forced host devices (the JAX package's own sharded
+  replay fails at its facade under an explicit-axis mesh).
 """
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -102,11 +112,14 @@ def test_oracles_and_digests_match_jax():
 def test_scenario_registry_matches_jax():
     assert SCENARIOS == JSC.SCENARIOS
     assert dataclasses.asdict(SC.POLICY) == dataclasses.asdict(JSC.POLICY)
-    for name in SCENARIOS:
+    assert SC.scenario_matrix() == JSC.scenario_matrix()
+    for name, placement in ((n, p) for n in SCENARIOS
+                            for p in ("local", "sharded")):
         for policy in (True, False):
-            spec, trace = get_scenario(name, policy=policy, scale=0.5,
-                                       seed=2)
-            jspec, jtrace = jax_get_scenario(name, policy=policy, scale=0.5,
+            spec, trace = get_scenario(name, placement=placement,
+                                       policy=policy, scale=0.5, seed=2)
+            jspec, jtrace = jax_get_scenario(name, placement=placement,
+                                             policy=policy, scale=0.5,
                                              seed=2)
             assert ((trace.name, trace.universe, trace.seed)
                     == (jtrace.name, jtrace.universe, jtrace.seed))
@@ -117,8 +130,6 @@ def test_scenario_registry_matches_jax():
                 if f.name == "resize_policy" and a is not None:
                     a, b = dataclasses.asdict(a), dataclasses.asdict(b)
                 assert a == b, (name, f.name)
-        with pytest.raises(NotImplementedError):
-            get_scenario(name, placement="sharded")
     with pytest.raises(KeyError):
         get_scenario("nope")
 
@@ -163,3 +174,101 @@ def test_every_local_scenario_replays(name):
                    trace, device="cpu", check=False)
     assert plain["policy"] is None and not plain["checked"]
     assert plain["steps"] == rep["steps"]
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_every_sharded_scenario_replays(name):
+    spec, trace = get_scenario(name, placement="sharded", scale=SCALE,
+                               seed=1)
+    assert spec.placement == "sharded" and spec.n_shards == 2
+    rep = replay(spec, trace, device="cpu", oracle="both",
+                 raise_on_mismatch=False)
+    assert rep["ok"], (rep["status_mismatches"], rep["content_mismatches"],
+                       rep["mismatch_examples"], rep["error_flag"])
+    assert rep["placement"] == "sharded" and rep["checked"]
+    assert rep["depth"]["increases"] > 0 and rep["policy"]["splits"] > 0
+
+
+@pytest.mark.parametrize("restore", [
+    dict(placement="sharded", shard_bits=2, dmax=8),    # 2 -> 4 shards
+    dict(placement="local", dmax=10, pool_size=1536),   # sharded -> local
+])
+def test_sharded_replay_reshards_at_revives(restore):
+    """``snapshot_restore``'s two revives move the table to another shard
+    count or placement mid-trace; the oracles run on at the aggregate
+    addressing, which every target keeps (dmax + shard_bits = 10)."""
+    spec, trace = get_scenario("snapshot_restore", placement="sharded",
+                               scale=SCALE)
+    target = dataclasses.replace(spec, **restore)
+    rep = replay(spec, trace, device="cpu", oracle="both",
+                 raise_on_mismatch=False, restore_spec=target)
+    assert rep["ok"], (rep["status_mismatches"], rep["content_mismatches"],
+                       rep["mismatch_examples"])
+    assert rep["snapshot_restores"] == 2
+    assert rep["policy"]["splits"] > 0 and rep["policy"]["merges"] > 0
+
+
+# the JAX side of the sharded replay comparison (subprocess)
+SHARDED = "phased_drain"
+
+
+def _jax_sharded_depths(out_path):
+    """The JAX sharded table over ``SHARDED``'s trace, one ``n_lanes`` chunk
+    per ``apply`` call: the depth after every step and the final policy
+    counters, as the port's ``replay`` reports them."""
+    from jax.sharding import AxisType
+
+    from repro import compat
+    from repro.table_api import Table as JaxTable
+
+    jspec, jtrace = jax_get_scenario(SHARDED, placement="sharded",
+                                     scale=JAX_SCALE)
+    mesh = jax.make_mesh((4, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    n = jspec.n_lanes
+    with compat.set_mesh(mesh):
+        t = JaxTable.create(jspec, mesh)
+        depths = [int(t.depth())]
+        for step in JTR.gen_steps(jtrace):
+            for lo in range(0, step.kinds.shape[0], n):
+                t, _ = t.apply(step.kinds[lo:lo + n], step.keys[lo:lo + n],
+                               step.vals[lo:lo + n])
+            jax.block_until_ready(t.state)
+            depths.append(int(t.depth()))
+        stats = t.policy_stats()
+        np.savez(out_path, depths=np.asarray(depths),
+                 policy=np.asarray([int(stats["splits"]),
+                                    int(stats["merges"])]),
+                 error=np.asarray(t.state.error))
+    print("jax side OK")
+    return 0
+
+
+def test_sharded_replay_matches_jax_chunked(tmp_path):
+    path = str(tmp_path / "jax.npz")
+    here = os.path.abspath(__file__)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(here), "..", "src")
+    proc = subprocess.run([sys.executable, here, "--jax-sharded", path],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    spec, trace = get_scenario(SHARDED, placement="sharded",
+                               scale=JAX_SCALE)
+    rep = replay(spec, trace, device="cpu", oracle="both",
+                 raise_on_mismatch=False)
+    assert rep["ok"]
+    with np.load(path) as z:
+        assert rep["depth"]["trajectory"] == z["depths"].tolist()
+        assert [rep["policy"]["splits"], rep["policy"]["merges"]] == \
+            z["policy"].tolist()
+        assert not z["error"].any()
+    d = rep["depth"]
+    assert d["increases"] > 0 and d["decreases"] > 0, d
+
+
+if __name__ == "__main__":
+    assert sys.argv[1] == "--jax-sharded", sys.argv
+    sys.exit(_jax_sharded_depths(sys.argv[2]))
