@@ -22,7 +22,11 @@ printing one JSON line:
    kernel at ``hash_shift = 2``, the sharded path's, at its shard pool
    and widths (``shift_cases``: the fused kernels shift the hash
    themselves, the unfused ones take bucket ids routed by the shifted
-   hash), with its own seeded generator;
+   hash), with its own seeded generator; then the fused kernels at the
+   LLM serving path's page table (``page_table_cases``: dmax 11 over 4,096
+   rows, ``(seq << 12) | block`` keys, ``fused_probe`` on the step's 8-key
+   pre-read and its 512-key page-id lookup, ``fused_apply`` on 16-lane
+   batches of a decode step's upserts and an eviction's deletes);
 3. main path at full size through the ``Table`` facade:
    ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
    initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
@@ -105,10 +109,36 @@ printing one JSON line:
     rounds there: preload and mixed rates beside the main path's, ms per
     write transaction, restore items/s, and the launches by kernel on
     each stage, which must be exactly one per shard per kernel call (the
-    fused kernels before the re-shard, the unfused ones after it).
+    fused kernels before the re-shard, the unfused ones after it);
+14. the LLM serving path: the paged-KV engine (``repro_torch/serving/
+    engine.py``) at full-width ``deepseek-7b`` (30 layers, d_model 4,096,
+    32 heads of 128, d_ff 11,008, vocabulary 102,400; random init in
+    bf16) with ``make_paged_config(cfg, batch=8, max_len=1024,
+    page_size=16)``: 1,024 pages of 16 tokens and a page table of dmax 11,
+    4,096 pool rows and 16 lanes on the fused kernels. 8 sequences decode
+    96 steps in lockstep with the dense ``decode_step`` (logits at rtol =
+    atol = 2e-2, both driven by the dense argmax); 4 are evicted and 4 new
+    ones admitted for 32 steps on the freed pages (``page_alloc`` must not
+    move); the engine is handed over to batch 16 (1,536 pages) and both
+    engines run 16 steps (logits agree on the first 8 slots). After each
+    stage the page table equals a host mirror of ``(seq, block) → (page,
+    length)``, the allocator and the slots (``to_dict``, payload lookups,
+    invariants, error flag, ``gather_kv``'s lengths, no page live twice or
+    both live and free). Then 8 paged steps under torch.profiler; the
+    smoke engine's ``save_engine`` / ``warm_start_engine`` round trip on
+    the card; every family's smoke ``decode_step`` on the card against the
+    CPU (1e-3 in float32, 2e-2 in bf16). The line: mismatches and max
+    logit error per stage, launches per decode step by kernel (the fused
+    kernels only, the same every step), host reads per step (CUDA's sync
+    debug mode), ms per paged and dense step (CUDA events, on the steps
+    that carry no instrumentation) and the paged step by part (on steps
+    of their own), tokens/s, the step's byte bound (weights and live K/V
+    over 3.35 TB/s) and the device's idle share (busy time and wall time
+    both from the profiled steps).
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
-kernel's launches on the sharded path beside the main path's) and, last,
+kernel's launches on the sharded and the LLM path beside the main path's)
+and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -204,6 +234,23 @@ SHARD_TIMED = 16
 SHARD2_ROUNDS = 8
 # the hash_shift the kernel cases of phase 2 add: the sharded path's
 SHIFT = SHARD_SPEC["shard_bits"]
+# the LLM serving path: the paged-KV engine (repro_torch/serving/engine.py)
+# at full-width deepseek-7b (random init, bf16) with its page table on the
+# fused kernels, against the dense decode: LLM_STEPS decode steps in three
+# stages (lockstep decode; evict half the slots and admit new sequences;
+# hand over to twice the batch), steps after LLM_WARMUP timed with CUDA
+# events, except LLM_TIMED (split into the table transaction, the page-id
+# lookup and the layer stack) and LLM_READS (host reads counted), which
+# carry instrumentation; then LLM_PROFILED steps under torch.profiler.
+# decode_32k (configs/shapes.py: batch 128 at 32,768 tokens) is cut to
+# batch 8 at 1,024 tokens
+LLM_ARCH = "deepseek-7b"
+LLM_BATCH, LLM_MAX_LEN, LLM_PAGE = 8, 1024, 16
+LLM_STEPS = (96, 32, 16)
+LLM_WARMUP = 8
+LLM_TIMED = (40, 48)
+LLM_READS = range(48, 56)
+LLM_PROFILED = 8
 
 
 # every phase's line, by phase name (phase 13 reads the main path's rates)
@@ -617,6 +664,43 @@ def kernel_checks(rng, dev):
             "grouped_apply": (g_mm, g_err)}
 
 
+def probe_case(name, case, kernel, plain, first, q, pk_t, pv_t, live,
+               dev, kw, **info):
+    """One lookup kernel against its plain version on the queries ``q``:
+    outputs equal and every live key found; one ``kernel_case`` line.
+    Returns (mismatches, max abs err)."""
+    q_t = torch.tensor(q.astype(np.int32), device=dev)
+    n_live = int(np.isin(q, live).sum())
+    kf, kv = kernel(first, q_t, pk_t, pv_t, **kw)
+    pf, pvals = plain(first, q_t, pk_t, pv_t, **kw)
+    torch.cuda.synchronize()
+    mm = int((kf != pf).sum() + (kv != pvals).sum())
+    err = int((kv.long() - pvals.long()).abs().max())
+    found = int(kf.sum())
+    emit({"phase": "kernel_case", "kernel": name, "case": case, **info,
+          "queries": int(q.size), "found": found, "live_keys": n_live,
+          "mismatches": mm, "max_abs_err": err})
+    check(mm == 0, f"{name} {case}: disagrees with its plain version in "
+          f"{mm} outputs")
+    check(found == n_live, f"{name} {case}: found {found} of {n_live} live "
+          "keys")
+    return mm, err
+
+
+def checked_apply_case(name, case, res, **info):
+    """Emit and check an ``apply_case`` result: no mismatch, the trash row
+    untouched, both TRUE and FALSE statuses seen. Returns (mismatches,
+    max abs err)."""
+    emit({"phase": "kernel_case", "kernel": name, "case": case, **info,
+          **res})
+    check(res["mismatches"] == 0, f"{name} {case}: disagrees with its "
+          f"plain version in {res['mismatches']} outputs")
+    check(res["trash_row_untouched"], f"{name} {case}: wrote the trash row")
+    check({1, 0} <= set(res["statuses"]), f"{name} {case}: statuses "
+          f"{res['statuses']}")
+    return res["mismatches"], res["max_abs_err"]
+
+
 def shift_cases(rng, dev, B=8):
     """The kernels at ``hash_shift = SHIFT``, the first non-zero value a
     path passes them (the sharded path's shards drop the shard id's bits):
@@ -653,29 +737,14 @@ def shift_cases(rng, dev, B=8):
              LOOKUPS_PER_ROUND),
             ("probe", probe, probe_plain, WIDE_LOOKUPS)):
         qn = q[:width]
-        q_t = torch.tensor(qn, device=dev)
         if name == "probe":
             first, kw = torch.tensor(route_np(qn, directory, dmax, SHIFT)
                                      .astype(np.int32), device=dev), {}
         else:
             first, kw = d_t, dict(dmax=dmax, hash_shift=SHIFT)
-        n_live = int(np.isin(qn, live).sum())
-        kf, kv = kernel(first, q_t, pk_t, pv_t, **kw)
-        pf, pvals = plain(first, q_t, pk_t, pv_t, **kw)
-        torch.cuda.synchronize()
-        mm = int((kf != pf).sum() + (kv != pvals).sum())
-        err = int((kv.long() - pvals.long()).abs().max())
-        found = int(kf.sum())
-        emit({"phase": "kernel_case", "kernel": name,
-              "case": f"shift{SHIFT}_b{B}", "hash_shift": SHIFT,
-              "queries": int(qn.size), "found": found,
-              "live_keys": n_live, "mismatches": mm,
-              "max_abs_err": err})
-        check(mm == 0, f"{name} shift{SHIFT}: disagrees with its plain "
-              f"version in {mm} outputs")
-        check(found == n_live, f"{name} shift{SHIFT}: found {found} of "
-              f"{n_live} live keys")
-        out[name] = (mm, err)
+        out[name] = probe_case(name, f"shift{SHIFT}_b{B}", kernel, plain,
+                               first, qn, pk_t, pv_t, live, dev, kw,
+                               hash_shift=SHIFT)
 
     fr_t = torch.zeros(P + 1, dtype=torch.bool, device=dev)
     n, m = SHARD_SPEC["n_lanes"], SHARD2_SPEC["n_lanes"]
@@ -701,15 +770,81 @@ def shift_cases(rng, dev, B=8):
         res = apply_case(fn, plain, pk, pv, [
             [torch.tensor(np.asarray(x).astype(np.int32), device=dev)
              for x in make()] for _ in range(4)], dev)
-        emit({"phase": "kernel_case", "kernel": name,
-              "case": f"shift{SHIFT}", "hash_shift": SHIFT, **res})
-        check(res["mismatches"] == 0, f"{name} shift{SHIFT}: disagrees with "
-              f"its plain version in {res['mismatches']} outputs")
-        check(res["trash_row_untouched"], f"{name} shift{SHIFT}: wrote the "
-              "trash row")
-        check({1, 0} <= set(res["statuses"]), f"{name} shift{SHIFT}: "
-              f"statuses {res['statuses']}")
-        out[name] = (res["mismatches"], res["max_abs_err"])
+        out[name] = checked_apply_case(name, f"shift{SHIFT}", res,
+                                       hash_shift=SHIFT)
+    return out
+
+
+def page_table_cases(rng, dev, depth=4):
+    """The fused kernels at the LLM serving path's page table (phase 14):
+    ``make_paged_config(deepseek-7b, 8, 1024, 16).table``, dmax 11 over
+    4,096 pool rows of 8 slots, under a directory at ``depth`` over
+    shuffled rows, holding the ``(seq << 12) | block`` keys of 8 slots'
+    sequences of 1–16 blocks (about half full). ``fused_probe`` takes the
+    step's pre-read (8 queries: each slot's current or next block) and the
+    page-id lookup (512: all 64 blocks of every slot); ``fused_apply``
+    takes 16-lane batches of the page table's mix, carried: a decode
+    step's upserts (8 INS lanes, half on a new block, 8 idle lanes) and an
+    eviction's per-block deletes (4 DEL lanes, 12 idle). Each kernel
+    against its plain version, tolerance 0, one ``kernel_case`` line per
+    case. Returns {kernel: (mismatches, max abs err)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.apply import fused_apply, fused_apply_plain
+    from repro_torch.kernels.lookup import fused_probe, fused_probe_plain
+    from repro_torch.serving import kvcache as KV
+    from repro_torch.serving.engine import make_paged_config
+
+    pc = make_paged_config(get_config(LLM_ARCH), LLM_BATCH, LLM_MAX_LEN,
+                           LLM_PAGE)
+    tbl, B, S = pc.table, pc.table.bucket_size, pc.batch
+    dmax, P, lanes = tbl.dmax, tbl.pool_size, tbl.n_lanes
+    rows = rng.permutation(P)[: 1 << depth].astype(np.int32)
+    directory = rows[np.arange(1 << dmax) >> (dmax - depth)]
+    seqs = rng.choice(np.arange(1, 1 << (31 - KV.BLOCK_BITS)), S,
+                      replace=False)
+    n_blk = rng.integers(1, 17, S)
+    keys = np.concatenate([(s << KV.BLOCK_BITS) | np.arange(n)
+                           for s, n in zip(seqs, n_blk)]).astype(np.int32)
+    pk = np.full((P + 1, B), EMPTY, np.int32)
+    pv = np.zeros((P + 1, B), np.int32)
+    live = keys[place_keys(pk, pv, keys, route_np(keys, directory, dmax), B,
+                           rng)]
+    d_t = torch.tensor(directory, device=dev)
+    pk_t, pv_t = (torch.tensor(x[:-1], device=dev) for x in (pk, pv))
+    cur = n_blk - 1 + (rng.random(S) < 0.5)
+    queries = {"page_q8": (seqs << KV.BLOCK_BITS) | cur,
+               "page_q512": ((seqs[:, None] << KV.BLOCK_BITS)
+                             | np.arange(pc.max_blocks)).reshape(-1)}
+    geometry = dict(dmax=dmax, pool_rows=P, depth=depth)
+    probes = [probe_case("fused_probe", case, fused_probe, fused_probe_plain,
+                         d_t, q, pk_t, pv_t, live, dev, dict(dmax=dmax),
+                         **geometry) for case, q in queries.items()]
+    out = {"fused_probe": (sum(mm for mm, _ in probes),
+                           max(err for _, err in probes))}
+
+    def step_ops():
+        blk = n_blk - 1 + (rng.random(S) < 0.5)
+        kinds, k, v = (np.zeros(lanes, np.int64) for _ in range(3))
+        kinds[:S], k[:S] = 1, (seqs << KV.BLOCK_BITS) | blk
+        v[:S] = rng.integers(0, tbl.slab_capacity, S)
+        return kinds, k, v
+
+    def evict_ops():
+        kinds, k, v = (np.zeros(lanes, np.int64) for _ in range(3))
+        slots = rng.choice(S, 4, replace=False)
+        kinds[:4] = 2
+        k[:4] = (seqs[slots] << KV.BLOCK_BITS) | rng.integers(
+            0, n_blk[slots] + 1)
+        return kinds, k, v
+
+    fr_t = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+    res = apply_case(
+        lambda *a: fused_apply(d_t, fr_t, *a, dmax=dmax),
+        lambda *a: fused_apply_plain(d_t, fr_t, *a, dmax=dmax), pk, pv,
+        [[torch.tensor(x.astype(np.int32), device=dev) for x in make()]
+         for make in (step_ops, evict_ops) * 4], dev)
+    out["fused_apply"] = checked_apply_case(
+        "fused_apply", f"page_mix{lanes}", res, **geometry)
     return out
 
 
@@ -2688,6 +2823,468 @@ def sharded_path(t_main, rng, dev):
             + mix2_launches[k] for k in pre_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LLM serving path — the paged-KV engine at full width
+
+
+class PageMirror:
+    """The host's expectation of the paged cache: ``(seq, block) → [page,
+    length]``, the free stack, the page watermark and the slot registry,
+    advanced by the JAX package's allocation rule (boundary slots in lane
+    order pop the free stack's top, then take the watermark) and eviction
+    order (block by block, lane by lane)."""
+
+    def __init__(self, batch: int, page_size: int, max_blocks: int):
+        self.ps, self.max_blocks = page_size, max_blocks
+        self.map, self.free, self.alloc = {}, [], 0
+        self.seq, self.len = [-1] * batch, [0] * batch
+
+    def admit(self, mask, ids):
+        for b in np.nonzero(mask)[0]:
+            self.seq[b], self.len[b] = int(ids[b]), 0
+
+    def step(self):
+        for b, s in enumerate(self.seq):
+            if s < 0:
+                continue
+            blk, off = divmod(self.len[b], self.ps)
+            if off == 0:
+                if self.free:
+                    page = self.free.pop()
+                else:
+                    page, self.alloc = self.alloc, self.alloc + 1
+            else:
+                page = self.map[(s, blk)][0]
+            self.map[(s, blk)] = [page, off + 1]
+            self.len[b] += 1
+
+    def evict(self, mask):
+        for blk in range(self.max_blocks):
+            for b in np.nonzero(mask)[0]:
+                key = (self.seq[b], blk)
+                if self.seq[b] >= 0 and blk * self.ps < self.len[b] \
+                        and key in self.map:
+                    self.free.append(self.map.pop(key)[0])
+        for b in np.nonzero(mask)[0]:
+            self.seq[b], self.len[b] = -1, 0
+
+    def grown(self, batch: int) -> "PageMirror":
+        out = PageMirror(batch, self.ps, self.max_blocks)
+        out.map = {k: list(v) for k, v in self.map.items()}
+        out.free, out.alloc = list(self.free), self.alloc
+        pad = batch - len(self.seq)
+        out.seq, out.len = self.seq + [-1] * pad, self.len + [0] * pad
+        return out
+
+
+def paged_mismatches(pc, st, mirror: PageMirror) -> int:
+    """Mismatches between a paged state and its mirror, each counted once:
+    mapped keys, (page, length) payloads, allocator, slot registry,
+    ``gather_kv``'s lengths, a page live twice or both live and free. The
+    invariants and the error flag raise."""
+    from repro_torch.core.invariants import check_invariants, to_dict
+    from repro_torch.serving import kvcache as KV
+
+    t = st.table
+    check_invariants(t.config, t.state)
+    check(not bool(t.state.error), "page table error flag")
+    want = {(s << KV.BLOCK_BITS) | blk: v
+            for (s, blk), v in mirror.map.items()}
+    have = set(to_dict(t.config, t.state))
+    bad = len(have ^ set(want))
+    keys = np.array(sorted(want), np.int32)
+    found, meta = t.lookup(keys)
+    got = np.stack([meta["page"].cpu().numpy(),
+                    meta["length"].cpu().numpy()], 1)
+    bad += int((~found.cpu().numpy()).sum())
+    bad += int((got != np.array([want[k] for k in keys.tolist()])).any(1)
+               .sum()) if len(keys) else 0
+    top = int(st.free_top)
+    free = st.free_pages[:top].cpu().tolist()
+    bad += int(free != mirror.free) + int(int(st.page_alloc) != mirror.alloc)
+    bad += int(st.lengths.cpu().tolist() != mirror.len)
+    bad += int(st.seq_ids.cpu().tolist() != mirror.seq)
+    _, _, glens = KV.gather_kv(pc, st)
+    bad += int(not torch.equal(glens, st.lengths))
+    live = got[:, 0].tolist()
+    bad += len(live) - len(set(live)) + len(set(live) & set(free))
+    return bad
+
+
+def logit_err(got, want, tol=2e-2):
+    """(mismatched: not within rtol = atol = ``tol``, max abs error)."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    return (not torch.allclose(got, want, rtol=tol, atol=tol)), err
+
+
+def llm_serving_path(seed, dev):
+    """The paged-KV engine at full-width ``deepseek-7b`` against the dense
+    decode, through admission, eviction with page reuse and a handover; the
+    smoke engine's image round trip; every family's decode on the card
+    against the CPU."""
+    import warnings
+
+    from torch.autograd import DeviceType
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KV
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LLM_ARCH)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    n_params = M.count_params(params)
+    B = LLM_BATCH
+    pc = E.make_paged_config(cfg, batch=B, max_len=LLM_MAX_LEN,
+                             page_size=LLM_PAGE)
+    tbl = pc.table
+    check((pc.max_blocks, pc.n_pages, tbl.dmax, tbl.pool_size, tbl.n_lanes,
+           tbl.slab_capacity) == (64, 1024, 11, 4096, 16, 2048),
+          f"paged geometry {pc}")
+    est = E.init_engine(cfg, pc, dev)
+    check(est.paged.table.plan().fused_apply, "page table not on the fused "
+          "kernels")
+    dense = M.init_cache(cfg, B, LLM_MAX_LEN, device=dev)
+    mirror = PageMirror(B, LLM_PAGE, pc.max_blocks)
+    rng = np.random.default_rng([seed, 14])
+
+    def admit(est, dense, mirror, mask, ids):
+        mirror.admit(mask, ids)
+        dense["length"][torch.from_numpy(mask).to(dev)] = 0
+        return est._replace(paged=KV.admit(pc, est.paged, mask, ids))
+
+    est = admit(est, dense, mirror, np.ones(B, bool),
+                np.arange(1, B + 1, dtype=np.int32))
+    tok = torch.tensor(rng.integers(1, cfg.vocab_size, B), dtype=torch.int32,
+                       device=dev)
+    kernels = kernel_counts()
+    per_step, host_reads, read_sites, marks = [], [], {}, {}
+    ev = {"paged": [], "dense": [], "timed": []}
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            e0, e1 = event(), event()
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            marks.setdefault(name, []).append((e0, e1))
+            return out
+        setattr(mod, name, wrapper)
+        return fn
+
+    def one_step(est, dense, tok, i, stage):
+        """Dense then paged on ``tok``; returns (est, dense, paged logits,
+        dense logits, dense argmax)."""
+        e = [event() for _ in range(4)]
+        e[0].record()
+        ld, dense = M.decode_step(cfg, params, dense, tok[:, None])
+        e[1].record()
+        est = est._replace(tokens=tok)
+        before = [f.launches for f in kernels.values()]
+        count_reads = stage == "decode" and i in LLM_READS
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_reads:
+                torch.cuda.set_sync_debug_mode("warn")
+            e[2].record()
+            est, lg = E.serve_step(cfg, pc, est, params)
+            e[3].record()
+            torch.cuda.set_sync_debug_mode(0)
+        if count_reads:
+            syncs = [w for w in caught if "synchroniz" in str(w.message)]
+            host_reads.append(len(syncs))
+            for w in syncs:
+                site = f"{Path(w.filename).name}:{w.lineno}"
+                read_sites[site] = read_sites.get(site, 0) + 1
+        per_step.append([f.launches - b
+                         for f, b in zip(kernels.values(), before)])
+        if stage == "decode" and LLM_TIMED[0] <= i < LLM_TIMED[1]:
+            ev["timed"].append((e[2], e[3]))
+        elif stage == "decode" and i >= LLM_WARMUP and not count_reads:
+            ev["dense"].append((e[0], e[1]))
+            ev["paged"].append((e[2], e[3]))
+        return est, dense, lg, ld[:, 0], torch.argmax(ld[:, 0], -1).to(
+            torch.int32)
+
+    zero_counts()
+    stages = {}
+    # stage 1: 96 steps in lockstep with the dense decode
+    mm, worst, t0 = 0, 0.0, time.perf_counter()
+    originals = {}
+    for i in range(LLM_STEPS[0]):
+        if i == LLM_TIMED[0]:
+            originals = {(KV, "allocate_slots"): timed(KV, "allocate_slots"),
+                         (E, "page_table_ids"): timed(E, "page_table_ids"),
+                         (E, "paged_layers"): timed(E, "paged_layers")}
+        if i == LLM_TIMED[1]:
+            for (mod, name), fn in originals.items():
+                setattr(mod, name, fn)
+        est, dense, lg, ld, tok = one_step(est, dense, tok, i, "decode")
+        mirror.step()
+        bad, err = logit_err(lg, ld)
+        mm, worst = mm + bad, max(worst, err)
+    torch.cuda.synchronize()
+    stages["decode"] = {"steps": LLM_STEPS[0], "logit_mismatches": mm,
+                        "max_logit_err": worst,
+                        "table_mismatches": paged_mismatches(pc, est.paged,
+                                                             mirror),
+                        "s": time.perf_counter() - t0}
+    # stage 2: evict every other slot, admit new sequences on their pages
+    t0 = time.perf_counter()
+    mask = np.arange(B) % 2 == 0
+    st = KV.evict(pc, est.paged, mask)
+    mirror.evict(mask)
+    freed = int(st.free_top)
+    alloc_before = int(st.page_alloc)
+    ids = np.where(mask, np.arange(B) + 100, 0).astype(np.int32)
+    est = admit(est._replace(paged=st), dense, mirror, mask, ids)
+    tok = torch.where(torch.from_numpy(mask).to(dev), 1, tok)
+    mm, worst = 0, 0.0
+    for i in range(LLM_STEPS[1]):
+        est, dense, lg, ld, tok = one_step(est, dense, tok, i, "evict")
+        mirror.step()
+        bad, err = logit_err(lg, ld)
+        mm, worst = mm + bad, max(worst, err)
+    stages["evict_admit"] = {
+        "steps": LLM_STEPS[1], "evicted_slots": int(mask.sum()),
+        "pages_freed": freed, "page_alloc_before": alloc_before,
+        "page_alloc_after": int(est.paged.page_alloc),
+        "free_top_after": int(est.paged.free_top),
+        "logit_mismatches": mm, "max_logit_err": worst,
+        "table_mismatches": paged_mismatches(pc, est.paged, mirror),
+        "s": time.perf_counter() - t0}
+    check(stages["evict_admit"]["page_alloc_after"] == alloc_before,
+          "freed pages not reused: page_alloc moved")
+    # stage 3: hand over to twice the batch; both engines go on
+    t0 = time.perf_counter()
+    pc_big = E.make_paged_config(cfg, batch=2 * B, max_len=LLM_MAX_LEN,
+                                 page_size=LLM_PAGE)
+    check(pc_big.n_pages == 1536, f"handover geometry {pc_big}")
+    torch.cuda.synchronize()
+    t_h = time.perf_counter()
+    est_big = E.handover_engine(pc, pc_big, est)
+    torch.cuda.synchronize()
+    handover_s = time.perf_counter() - t_h
+    mirror_big = mirror.grown(2 * B)
+    # the big engine's oracle: the dense decode at its batch (the same
+    # product shapes), continuing the batch-8 dense cache's history
+    dense_big = {k: torch.cat([v, torch.zeros_like(v)], dim=int(v.ndim > 1))
+                 for k, v in dense.items()}
+    mm, worst, mm_h, worst_h, shape_err = 0, 0.0, 0, 0.0, 0.0
+    for i in range(LLM_STEPS[2]):
+        tok_big = torch.cat([tok, torch.zeros_like(tok)])
+        ld_big, dense_big = M.decode_step(cfg, params, dense_big,
+                                          tok_big[:, None])
+        est_big, lg_big = E.serve_step(cfg, pc_big,
+                                       est_big._replace(tokens=tok_big),
+                                       params)
+        mirror_big.step()
+        est, dense, lg, ld, tok = one_step(est, dense, tok, i, "handover")
+        mirror.step()
+        bad, err = logit_err(lg, ld)
+        mm, worst = mm + bad, max(worst, err)
+        bad, err = logit_err(lg_big[:B], ld_big[:B, 0])
+        mm_h, worst_h = mm_h + bad, max(worst_h, err)
+        shape_err = max(shape_err, logit_err(lg_big[:B], lg)[1])
+    stages["handover"] = {
+        "steps": LLM_STEPS[2], "batch": 2 * B, "n_pages": pc_big.n_pages,
+        "handover_s": handover_s, "logit_mismatches": mm,
+        "max_logit_err": worst, "handover_logit_mismatches": mm_h,
+        "handover_max_logit_err": worst_h,
+        "batch16_vs_batch8_max_logit_err": shape_err,
+        "table_mismatches": paged_mismatches(pc, est.paged, mirror),
+        "handover_table_mismatches": paged_mismatches(pc_big, est_big.paged,
+                                                      mirror_big),
+        "s": time.perf_counter() - t0}
+    del est_big, dense, dense_big
+    # the device's idle share over LLM_PROFILED paged steps back to back,
+    # each on the engine's own next tokens
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        e_prof = [event(), event()]
+        e_prof[0].record()
+        for _ in range(LLM_PROFILED):
+            est, _ = E.serve_step(cfg, pc, est, params)
+            mirror.step()
+        e_prof[1].record()
+        torch.cuda.synchronize()
+    ms_prof = e_prof[0].elapsed_time(e_prof[1]) / LLM_PROFILED
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA)
+    check(paged_mismatches(pc, est.paged, mirror) == 0,
+          "page table after the profiled steps")
+    launches = read_counts()
+    print(json.dumps({"llm_stages": stages}), flush=True)
+    for name, s in stages.items():
+        for k in ("logit_mismatches", "table_mismatches",
+                  "handover_logit_mismatches", "handover_table_mismatches"):
+            check(s.get(k, 0) == 0, f"{name}: {k} {s.get(k)}")
+    steps = [dict(zip(kernels, s)) for s in per_step]
+    check(all(s == steps[0] for s in steps), f"launches vary by step: "
+          f"{sorted({tuple(s.values()) for s in steps})}")
+    check(steps[0]["fused_probe"] > 0 and steps[0]["fused_apply"] > 0
+          and steps[0]["probe"] == steps[0]["grouped_apply"] == 0,
+          f"launches per decode step {steps[0]}")
+
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in ev.items()}
+    parts = {k: float(np.mean([a.elapsed_time(b) for a, b in v]))
+             for k, v in marks.items()}
+    ms_paged, ms_dense = float(np.mean(ms["paged"])), float(
+        np.mean(ms["dense"]))
+    parts["step"] = float(np.mean(ms["timed"]))
+    parts["rest"] = parts["step"] - sum(parts[k] for k in marks)
+    weight_bytes = sum(leaf.numel() * leaf.element_size()
+                       for leaf in _leaves(params)) \
+        - params["embed"].numel() * params["embed"].element_size() \
+        + B * cfg.d_model * params["embed"].element_size()
+    kv_per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    mean_len = float(np.mean(np.arange(LLM_WARMUP, LLM_STEPS[0]) + 1))
+    kv_bytes = B * mean_len * kv_per_token
+    b_ms, b_by = bound_ms(weight_bytes + kv_bytes, 0)
+    warm = warm_start_check(seed, dev)
+    families = family_decode_checks(seed, dev)
+    emit({"phase": "llm_serving_path", "model": LLM_ARCH,
+          "params": n_params, "dtype": cfg.dtype,
+          "geometry": {"batch": B, "max_len": LLM_MAX_LEN,
+                       "page_size": LLM_PAGE, "max_blocks": pc.max_blocks,
+                       "n_pages": pc.n_pages,
+                       "pages_gb_each": est.paged.pages_k.numel() * 2 / 1e9,
+                       "table": {"dmax": tbl.dmax, "pool_size":
+                                 tbl.pool_size, "n_lanes": tbl.n_lanes,
+                                 "slab_capacity": tbl.slab_capacity},
+                       "dense_cache": [cfg.n_layers, B, LLM_MAX_LEN,
+                                       cfg.n_kv_heads, cfg.head_dim]},
+          "reduced": {"batch": [128, B], "max_len": [32768, LLM_MAX_LEN],
+                      "warm_start": "smoke_config"},
+          "decode_32k_kv_bytes": 128 * 32768 * kv_per_token,
+          "stages": stages, "warm_start": warm, "families": families,
+          "launches_per_decode_step": steps[0],
+          "host_reads_per_decode_step": host_reads,
+          "host_read_sites": read_sites,
+          "ms_per_paged_step": ms_paged, "ms_per_dense_step": ms_dense,
+          "paged_step_ms_by_part": parts,
+          "tokens_per_s_paged": B / ms_paged * 1e3,
+          "tokens_per_s_dense": B / ms_dense * 1e3,
+          "bound": {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes,
+                    "bound_ms": b_ms, "bound_by": b_by},
+          "timed_steps": len(ms["paged"]),
+          "device_busy_ms_per_step": busy / 1e3 / LLM_PROFILED,
+          "ms_per_profiled_step": ms_prof,
+          "device_idle_share": 1 - busy / 1e3 / LLM_PROFILED / ms_prof,
+          "phase_s": time.perf_counter() - t_phase, "ok": True})
+    return launches
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def warm_start_check(seed, dev):
+    """``save_engine`` / ``warm_start_engine`` on the card at the smoke
+    config (the image holds fp32 pages): the restored engine, under a
+    bigger batch, equals the saver in state and decodes the same logits."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import snapshot as S
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KV
+
+    cfg = smoke_config(LLM_ARCH)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                           dev)
+    pc = E.make_paged_config(cfg, batch=4, max_len=64, page_size=8)
+    pc_big = E.make_paged_config(cfg, batch=6, max_len=64, page_size=8)
+    est = E.init_engine(cfg, pc, dev)
+    est = est._replace(paged=KV.admit(pc, est.paged, np.ones(4, bool),
+                                      np.arange(1, 5, dtype=np.int32)),
+                       tokens=torch.ones(4, dtype=torch.int32, device=dev))
+    for _ in range(20):
+        est, _ = E.serve_step(cfg, pc, est, params)
+    path = str(ROOT / "build" / "chip_smoke" / "engine_image")
+    t0 = time.perf_counter()
+    E.save_engine(path, pc, est)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = E.warm_start_engine(pc_big, path, dev)
+    restore_s = time.perf_counter() - t0
+    a, b = S.extract_image(est.paged.table), S.extract_image(warm.paged.table)
+    same = (np.array_equal(a.keys, b.keys)
+            and all(np.array_equal(a.values[k], b.values[k])
+                    for k in a.values)
+            and torch.equal(warm.paged.lengths[:4], est.paged.lengths)
+            and torch.equal(warm.paged.pages_k[:, :pc.n_pages],
+                            est.paged.pages_k)
+            and torch.equal(warm.tokens[:4], est.tokens))
+    check(same, "warm-started engine differs from the saver")
+    worst = 0.0
+    for i in range(4):
+        est, la = E.serve_step(cfg, pc, est, params)
+        warm, lb = E.serve_step(cfg, pc_big, warm, params)
+        bad, err = logit_err(lb[:4], la)
+        check(not bad, f"warm start step {i}: max err {err}")
+        worst = max(worst, err)
+    return {"config": "smoke_config", "batch": [4, 6], "steps_before": 20,
+            "steps_after": 4, "max_logit_err": worst, "save_s": save_s,
+            "restore_s": restore_s, "image_equal": True}
+
+
+FAMILY_TOLERANCES = (("float32", 1e-3), ("bfloat16", 2e-2))
+
+
+def family_decode_checks(seed, dev, tolerances=FAMILY_TOLERANCES):
+    """``decode_step`` of every family's smoke config, 4 steps on ``dev``
+    against the CPU on the same weights and tokens: max logit error per
+    (family, dtype), within each dtype's tolerance (rtol = atol)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import model as M
+
+    out = {}
+    for arch in sorted(ARCHS):
+        out[arch] = {}
+        for dtype, tol in tolerances:
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            p_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+            p_dev = M.params_from_numpy(tree_numpy(p_cpu), cfg, dev)
+            enc = 16 if cfg.enc_layers else 0
+            c_dev = M.init_cache(cfg, 2, 16, enc, dev)
+            c_cpu = M.init_cache(cfg, 2, 16, enc, "cpu")
+            if enc:
+                mem = torch.randn(2, enc, cfg.d_model, generator=torch
+                                  .Generator().manual_seed(seed + 1))
+                c_dev["memory"] = mem.to(device=dev, dtype=cfg.torch_dtype)
+                c_cpu["memory"] = mem.to(dtype=cfg.torch_dtype)
+            tok = torch.ones(2, 1, dtype=torch.int32)
+            worst = 0.0
+            for i in range(4):
+                lg, c_dev = M.decode_step(cfg, p_dev, c_dev, tok.to(dev))
+                lc, c_cpu = M.decode_step(cfg, p_cpu, c_cpu, tok)
+                bad, err = logit_err(lg.cpu(), lc, tol)
+                check(not bad, f"{arch} {dtype} step {i}: max err {err}")
+                worst = max(worst, err)
+                tok = lc.argmax(-1).to(torch.int32)
+            out[arch][dtype] = worst
+    return out
+
+
+def tree_numpy(tree):
+    """A parameter tree as float32 numpy arrays (``params_from_numpy``'s
+    input)."""
+    return {k: tree_numpy(v) if isinstance(v, dict) else
+            v.float().cpu().numpy() for k, v in tree.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2704,8 +3301,9 @@ def main() -> int:
     emit({"phase": "build", "build_s": build_s, "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     checks = kernel_checks(rng, dev)
-    for name, (mm, err) in shift_cases(np.random.default_rng(
-            [args.seed, SHIFT]), dev).items():
+    extra = [shift_cases(np.random.default_rng([args.seed, SHIFT]), dev),
+             page_table_cases(np.random.default_rng([args.seed, 14]), dev)]
+    for name, (mm, err) in (kv for d in extra for kv in d.items()):
         checks[name] = (checks[name][0] + mm, max(checks[name][1], err))
     t, launches, oracle, absent = main_path(rng, dev)
     tw, wide_launches, raw_restore_rate = wide_path(t, oracle, absent, rng,
@@ -2721,8 +3319,10 @@ def main() -> int:
     chaos_path(args.seed, dev)
     t = baselines_path(t, rng, dev)
     sharded = sharded_path(t, rng, dev)
+    llm = llm_serving_path(args.seed, dev)
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
+        k["launches_llm"] = llm[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -11,12 +11,17 @@ the CPU: statuses, lookups and every state array equal. Sharded tables
 (``core/dist.py``, 2 and 4 shards, fused and unfused widths, raw and
 with a value schema and the policy) run one stream on the card and on the
 CPU: statuses, lookups and content equal, and every per-shard state array
-equal with pool rows compared as sets. They skip where there is no card;
+equal with pool rows compared as sets. The smoke paged-KV engine and every
+family's smoke ``decode_step`` run on the card against the CPU: logits at
+the dtype's tolerance, the engine's integers equal, and the engine's
+launches the fused kernels only. They skip where there is no card;
 the GPU machine has no JAX, so this file imports none:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_paths.py
 """
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -313,3 +318,79 @@ def test_sharded_streams_on_the_card_equal_the_cpu(cuda, shard_bits, lanes,
             x, y = x[:, :P], y[:, :P]
         np.testing.assert_array_equal(x, y, err_msg=f)
     assert not bool(t_gpu.state.error.any())
+
+
+def _engine_stream(cfg, p, dev, backend, steps):
+    """A smoke engine's stream on ``dev``: 4 slots admitted, ``steps``
+    steps, slots 0 and 2 evicted and re-admitted, 6 more steps. Returns the
+    logits, the final state's integers and the launches per step."""
+    from repro_torch.kernels.apply import fused_apply, grouped_apply
+    from repro_torch.kernels.lookup import fused_probe, probe
+    from repro_torch.serving import engine as E
+    from repro_torch.serving import kvcache as KV
+
+    kernels = (fused_probe, fused_apply, probe, grouped_apply)
+    pc = E.make_paged_config(cfg, batch=4, max_len=32, page_size=4)
+    pc = dataclasses.replace(pc, table=dataclasses.replace(
+        pc.table, backend=backend))
+    est = E.init_engine(cfg, pc, dev)
+    est = est._replace(paged=KV.admit(pc, est.paged, np.ones(4, bool),
+                                      np.arange(1, 5, dtype=np.int32)),
+                       tokens=torch.ones(4, dtype=torch.int32, device=dev))
+    logits, launches = [], []
+    for i in range(steps + 6):
+        if i == steps:
+            mask = np.array([True, False, True, False])
+            est = est._replace(paged=KV.admit(
+                pc, KV.evict(pc, est.paged, mask), mask,
+                np.array([10, 0, 11, 0], np.int32)))
+        before = [f.launches for f in kernels]
+        est, lg = E.serve_step(cfg, pc, est, p)
+        launches.append([f.launches - b for f, b in zip(kernels, before)])
+        logits.append(lg.float().cpu())
+    st = est.paged
+    ints = [S.extract_image(st.table).keys, st.page_alloc.cpu(),
+            st.free_top.cpu(), st.free_pages.cpu(), st.lengths.cpu(),
+            st.seq_ids.cpu()]
+    return logits, ints, launches
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_equals_the_cpu(cuda):
+    """The smoke ``deepseek-7b`` engine on the card (the fused kernels under
+    the page table) against the same stream on the CPU: logits at the bf16
+    tolerance, every integer of the state equal; on the card each step
+    launches 4 ``fused_probe`` and 1 ``fused_apply`` and nothing else."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import model as M
+
+    cfg = smoke_config("deepseek-7b")
+    p = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = M.params_from_numpy(_chip_smoke().tree_numpy(p), cfg, cuda)
+    got = _engine_stream(cfg, p_gpu, cuda, "auto", 14)
+    want = _engine_stream(cfg, p, torch.device("cpu"), "auto", 14)
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-2,
+                                   atol=2e-2, err_msg=f"step {i}")
+    for a, b in zip(got[1], want[1]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert all(step == [4, 1, 0, 0] for step in got[2]), got[2]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` from the repository's root, whose checks the card
+    tests share."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-3),
+                                        ("bfloat16", 2e-2)])
+def test_decode_step_on_the_card_equals_the_cpu(cuda, dtype, tol):
+    """``decode_step`` of every family's smoke config, 4 steps on the card
+    against the CPU on the same weights and tokens."""
+    _chip_smoke().family_decode_checks(1, cuda, [(dtype, tol)])
