@@ -134,11 +134,43 @@ printing one JSON line:
     that carry no instrumentation) and the paged step by part (on steps
     of their own), tokens/s, the step's byte bound (weights and live K/V
     over 3.35 TB/s) and the device's idle share (busy time and wall time
-    both from the profiled steps).
+    both from the profiled steps);
+15. the sharded serving tier: a ``Router`` on a 4-shard ``SHARD_SPEC``
+    table restored from the main image (its cost model measured there),
+    1,024 closed-loop clients of 32 requests each in the 90/10 mix
+    (a shard bound of 224, so hot shards shed and their clients retry),
+    handed over onto the local ``WIDE_SPEC`` halfway; then a local router
+    on the main geometry over the result, handed over onto ``SHARD_SPEC``
+    halfway with the later submits re-homed under the 4 shards; every
+    result against the dict oracle in linearization order, the final
+    content and image, the queue depths at each handover, the sheds by
+    shard, and the launches, exactly one per shard per facade call while
+    sharded (the fused kernels), the unfused ones only on ``WIDE_SPEC``;
+    then ``serve_closed_loop`` (256 clients x 64 "churn" ops) on
+    ``SHARD_SPEC`` handed over onto the local main geometry; then a
+    ``chaos_reshard`` run on 2 shards stretched to 20,000 ops with 6
+    events (kill/revive, re-shard and handover across 2 / 4 / 8 shards and
+    local, policy flaps): digests after every event, the invariants per
+    shard, a move across placements;
+16. the training path: ``repro_torch.launch.train.main`` at full-width
+    ``smollm-135m`` (30 layers, d_model 576, 9 heads of 64 with 3 KV
+    heads, d_ff 1,536, vocabulary 49,152; random init, bf16), 8 steps of
+    8 x 2,048 tokens, checkpoints at steps 4 and 8 with the main table
+    alongside; a fresh launcher on a copy holding only step 4 replays
+    steps 5-8 (losses within 1e-3 relative); the checkpointed table
+    restored into ``SHARD_SPEC`` (its image equal to the main table's, one
+    ``fused_apply`` per shard per restore transaction); full-width
+    ``hymba-1.5b`` (32 layers, d_model 1,600, 25 heads with 5 KV heads,
+    SSM state 16, a 1,024 window and every 8th layer global) for 3 steps
+    of 2 x 2,048 tokens; every family's smoke ``train_step`` on the card
+    against the CPU (1e-3 in float32, 2e-2 in bf16). The line: losses, ms
+    per step (CUDA events, steps after the first), tokens/s, peak memory
+    and the FLOP bound (6 x parameters x tokens plus attention, over the
+    dense bf16 peak) for both models, checkpoint seconds and bytes.
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
-kernel's launches on the sharded and the LLM path beside the main path's)
-and, last,
+kernel's launches on the sharded, the LLM, the sharded serving and the
+training path beside the main path's) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -148,6 +180,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -251,6 +284,31 @@ LLM_WARMUP = 8
 LLM_TIMED = (40, 48)
 LLM_READS = range(48, 56)
 LLM_PROFILED = 8
+# the sharded serving tier: a router on SHARD_SPEC restored from the main
+# image, handed over onto the local WIDE_SPEC halfway, then a local router
+# on the main geometry handed over onto SHARD_SPEC; phase 10's 1,024
+# clients with 32 requests each (cut from 128). The first router's shard
+# bound of 224 sits below the 256 requests a shard averages when all 1,024
+# clients have one queued, so hot shards shed and their clients retry
+# SHARD_RETRY_S later
+SHARD_SERVE_CLIENTS, SHARD_SERVE_REQUESTS = 1024, 32
+SHARD_SERVE_CONFIG = dict(SERVE_CONFIG, max_queue_per_shard=224)
+SHARD_RETRY_S = 5e-4
+# chaos across placements: chaos_reshard on 2 shards stretched to 20,000
+# ops (cut from the chaos path's 110,000) with 6 events (cut from 24) over
+# 2 / 4 / 8 shards and local
+SHARD_CHAOS_OPS, SHARD_CHAOS_EVENTS = 20_000, 6
+SHARD_CHAOS_KINDS = ("kill_revive", "reshard", "policy_flap", "handover")
+# the training path: full-width smollm-135m (the model examples/
+# train_smollm.py trains) through the launcher, 8 steps of 8 x 2,048
+# tokens, checkpoints at steps 4 and 8 with the main table alongside, a
+# resume from step 4; then full-width hymba-1.5b for 3 steps of 2 x 2,048
+# tokens, past its 1,024-token window
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH = "smollm-135m", 2048, 8
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 4
+HYBRID_ARCH, HYBRID_SEQ, HYBRID_BATCH, HYBRID_STEPS = "hymba-1.5b", 2048, 2, 3
+# H100 SXM dense bf16 tensor-core peak
+PEAK_BF16_FLOPS = 989e12
 
 
 # every phase's line, by phase name (phase 13 reads the main path's rates)
@@ -2016,9 +2074,10 @@ class ServeClients:
     live keys, deletes of never-inserted keys). Results are checked
     against the dict oracle in the router's linearization order."""
 
-    def __init__(self, rng, oracle: Oracle, fresh, absent, n, requests):
-        from repro_torch.serving.router import DEL, INS, READ
-        self.kinds = READ, INS, DEL
+    def __init__(self, rng, oracle: Oracle, fresh, absent, n, requests,
+                 retry_s=None):
+        from repro_torch.serving.router import DEL, INS, READ, shard_of
+        self.kinds, self.shard_of = (READ, INS, DEL), shard_of
         self.rng, self.oracle = rng, oracle
         self.fresh, self.absent = iter(fresh.tolist()), absent
         self.remaining = [requests] * n
@@ -2026,6 +2085,10 @@ class ServeClients:
         self.in_flight = {}
         self.status_mm = self.content_mm = self.completed = 0
         self.examples = []
+        # with retry_s, a shed request is counted by its home shard (per
+        # shard count of the router's spec) and its client retries
+        # retry_s later; without it, a shed fails the run
+        self.retry_s, self.shed = retry_s, {}
 
     def pick(self):
         READ, INS, DEL = self.kinds
@@ -2050,7 +2113,13 @@ class ServeClients:
             _, c = heapq.heappop(self.ready)
             kind, key, value = self.pick()
             req, decision = router.submit(kind, key, value, now=now)
-            check(req is not None, f"request shed: {decision}")
+            if req is None:
+                check(self.retry_s is not None, f"request shed: {decision}")
+                spec = router.table.spec
+                per = self.shed.setdefault(spec.n_shards, [0] * spec.n_shards)
+                per[self.shard_of(key, spec)] += 1
+                heapq.heappush(self.ready, (now + self.retry_s, c))
+                continue
             self.in_flight[req.rid] = c
 
     def absorb(self, done):
@@ -2087,37 +2156,94 @@ class ServeClients:
         if len(router.queues):
             times.append(now + router.config.max_delay_s
                          - router.queues.oldest_wait(now))
-        return max(min(times), busy_until) if times else now
+        if not times:
+            return now
+        # the deadline can round to ``now`` itself while the oldest request
+        # is still an ulp short of ``max_delay_s``: step at least one ulp,
+        # or the clock stands still and nothing ever dispatches
+        return max(min(times), busy_until, float(np.nextafter(now, np.inf)))
+
+
+class FacadeCalls:
+    """While active, counts the facade's calls into its dispatch point:
+    ``_raw_apply`` (one per write transaction) and ``_raw_lookup`` (one
+    per lookup batch), each of which launches a kernel once per shard."""
+
+    def __enter__(self):
+        from repro_torch import table_api as TA
+        self.n = {"apply": 0, "lookup": 0}
+        self.saved = TA._raw_apply, TA._raw_lookup
+
+        def counted(name, fn):
+            def run(*args):
+                self.n[name] += 1
+                return fn(*args)
+            return run
+
+        TA._raw_apply = counted("apply", self.saved[0])
+        TA._raw_lookup = counted("lookup", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import table_api as TA
+        TA._raw_apply, TA._raw_lookup = self.saved
+
+    def take(self) -> dict:
+        out, self.n = self.n, {"apply": 0, "lookup": 0}
+        return out
+
+
+def queued_home_shards(router) -> list:
+    """A recount of the router's queued requests by their keys' home shards
+    under its table's spec."""
+    from repro_torch.serving.router import shard_of
+    spec = router.table.spec
+    out = [0] * spec.n_shards
+    for q in (router.queues._reads, router.queues._writes):
+        for req in q:
+            out[shard_of(req.key, spec)] += 1
+    return out
 
 
 def serve_requests(router, clients, wide_spec):
     """Drive ``clients`` through ``router`` on a virtual clock; hand over
     onto ``wide_spec`` once half the requests completed, with requests
-    still queued. Returns (launches before, at and after the handover,
-    summed service seconds, handover seconds, virtual seconds)."""
+    still queued. Returns (launches before, at and after the handover —
+    with the facade's calls under ``calls_*`` and the per-shard queue
+    depths just before and after the handover and their recount by home
+    shard under ``queue_depths`` —, summed service seconds, handover
+    seconds, virtual seconds)."""
     total = sum(clients.remaining)
     now = busy_until = service_s = 0.0
     launches, handover_s = {}, 0.0
     zero_counts()
-    while clients.ready or len(router.queues):
-        clients.submit_ready(router, now)
-        if (not launches and clients.completed >= total // 2
-                and len(router.queues)):
-            launches["before"] = read_counts()
-            zero_counts()
-            t0 = time.perf_counter()
-            router.handover(wide_spec)
-            torch.cuda.synchronize()
-            handover_s = time.perf_counter() - t0
-            launches["handover"] = read_counts()
-            zero_counts()
-        done = router.pump(now=now)
-        if done:
-            busy_until = done[0].t_complete
-            service_s += done[0].t_complete - done[0].t_dispatch
-            clients.absorb(done)
-        now = clients.next_time(router, now, busy_until)
-    launches["after"] = read_counts()
+    with FacadeCalls() as calls:
+        while clients.ready or len(router.queues):
+            clients.submit_ready(router, now)
+            if (not launches and clients.completed >= total // 2
+                    and len(router.queues)):
+                launches["before"] = read_counts()
+                launches["calls_before"] = calls.take()
+                zero_counts()
+                depths = router.queues.depths()
+                t0 = time.perf_counter()
+                router.handover(wide_spec)
+                torch.cuda.synchronize()
+                handover_s = time.perf_counter() - t0
+                launches["queue_depths"] = {
+                    "before": depths, "after": router.queues.depths(),
+                    "recount_after": queued_home_shards(router)}
+                launches["handover"] = read_counts()
+                launches["calls_handover"] = calls.take()
+                zero_counts()
+            done = router.pump(now=now)
+            if done:
+                busy_until = done[0].t_complete
+                service_s += done[0].t_complete - done[0].t_dispatch
+                clients.absorb(done)
+            now = clients.next_time(router, now, busy_until)
+        launches["after"] = read_counts()
+        launches["calls_after"] = calls.take()
     return launches, service_s, handover_s, now
 
 
@@ -3285,6 +3411,539 @@ def tree_numpy(tree):
             v.float().cpu().numpy() for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the sharded serving tier — routers across placements, the
+# closed loop, chaos across placements
+
+
+def one_per_shard(launches, calls, n_shards, kernels, what):
+    """Each of the facade's calls launched each of ``kernels`` (a
+    (probe, apply) pair) exactly once per shard, and nothing else ran."""
+    want = {kernels[0]: n_shards * calls["lookup"],
+            kernels[1]: n_shards * calls["apply"]}
+    got = {k: v for k, v in launches.items() if v}
+    check(calls["lookup"] > 0 and calls["apply"] > 0 and got == want,
+          f"{what}: launches {launches} for calls {calls}, want {want}")
+
+
+def served(router, clients, launches, service_s, virtual_s, wall_s):
+    """The line's record of one router run."""
+    rep = router.report()
+    check(clients.status_mm == 0 and clients.content_mm == 0,
+          f"serving mismatches: {clients.examples}")
+    check(rep["dropped"] == 0 and rep["handovers"] == 1
+          and rep["admitted"] == rep["completed"] == clients.completed,
+          f"serving counts {rep}")
+    n = rep["completed"]
+    return {"submitted": rep["submitted"], "admitted": rep["admitted"],
+            "completed": n, "dropped": rep["dropped"],
+            "handovers": rep["handovers"],
+            "shed_queue_full": rep["shed_queue_full"],
+            "shed_by_shard": {str(k): v for k, v in clients.shed.items()},
+            "dispatches": rep["dispatches"], "mean_batch": rep["mean_batch"],
+            "total_ms": latency_ms(router.metrics.total),
+            "service_ms": latency_ms(router.metrics.service),
+            "queue_wait_ms": latency_ms(router.metrics.queue_wait),
+            "service_s": service_s, "requests_per_service_s": n / service_s,
+            "virtual_s": virtual_s, "wall_s": wall_s,
+            "queue_depths_at_handover": launches["queue_depths"],
+            "launches_before_handover": launches["before"],
+            "calls_before_handover": launches["calls_before"],
+            "launches_handover": launches["handover"],
+            "launches_after_handover": launches["after"],
+            "calls_after_handover": launches["calls_after"]}
+
+
+def cross_placement_moves(rep, origin: str) -> int:
+    """Re-shard and handover events whose target placement differs from
+    the table's placement before them."""
+    moves = 0
+    for r in rep["events"]:
+        if "to" in r and not r["skipped"]:
+            moves += r["to"]["placement"] != origin
+            origin = r["to"]["placement"]
+    return moves
+
+
+def sharded_serving_path(rng, dev, seed):
+    """Routers across placements at the sharded path's geometry: a router
+    on a 4-shard ``SHARD_SPEC`` table restored from the main image, its
+    cost model measured there, SHARD_SERVE_CLIENTS x SHARD_SERVE_REQUESTS
+    closed-loop requests of the 90/10 mix (hot shards shed, the client
+    retries) handed over onto the local ``WIDE_SPEC`` halfway; then a
+    local main-geometry router over the result, handed over onto
+    ``SHARD_SPEC`` halfway with the submits after it re-homed. Then
+    ``serve_closed_loop`` on ``SHARD_SPEC`` handed over onto the local main
+    geometry, and a ``chaos_reshard`` run across 2 / 4 / 8 shards and
+    local."""
+    from repro_torch.core.invariants import to_dict
+    from repro_torch.core.snapshot import extract_image, load_image
+    from repro_torch.serving.router import (Router, RouterConfig,
+                                            measure_cost_model)
+    from repro_torch.table_api import Table, TableSpec
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.chaos import chaos_replay, chaos_setup
+    from repro_torch.workloads.scenarios import POLICY
+
+    t_phase = time.perf_counter()
+    shard_spec = TableSpec(**SHARD_SPEC, backend="cuda")
+    wide_spec = TableSpec(**WIDE_SPEC, backend="cuda")
+    main_spec = TableSpec(**MAIN_SPEC, backend="cuda")
+    n_shards = shard_spec.n_shards
+    path = str(ROOT / "build" / "chip_smoke" / "main.npz")
+    image = load_image(path)
+    oracle = Oracle()
+    for k, v in zip(image.keys.tolist(), image.values.tolist()):
+        oracle.insert(k, v)
+    # a shed pick may draw a fresh key too: room for four picks a request
+    n_fresh = 4 * (SHARD_SERVE_CLIENTS * SHARD_SERVE_REQUESTS // 10)
+    keys = distinct_keys(rng, 2 * n_fresh + 2**16)
+    keys = keys[~np.isin(keys, image.keys)]
+    fresh_a, fresh_b = keys[:n_fresh], keys[n_fresh:2 * n_fresh]
+    absent = keys[2 * n_fresh:]
+    totals = {k: 0 for k in kernel_counts()}
+
+    def add(*counts):
+        for c in counts:
+            for k in totals:
+                totals[k] += c[k]
+
+    # A: sharded -> local
+    table = Table.restore(path, shard_spec, device=dev)
+    cost = measure_cost_model(table)
+    router = Router(table, RouterConfig(**SHARD_SERVE_CONFIG),
+                    cost_model=cost)
+    router.warmup()
+    clients = ServeClients(rng, oracle, fresh_a, absent, SHARD_SERVE_CLIENTS,
+                           SHARD_SERVE_REQUESTS, retry_s=SHARD_RETRY_S)
+    t0 = time.perf_counter()
+    la, service_a, handover_a, virtual_a = serve_requests(router, clients,
+                                                          wide_spec)
+    run_a = served(router, clients, la, service_a, virtual_a,
+                   time.perf_counter() - t0)
+    add(la["before"], la["handover"], la["after"])
+    one_per_shard(la["before"], la["calls_before"], n_shards,
+                  ("fused_probe", "fused_apply"), "sharded router")
+    after = {k: v for k, v in la["after"].items() if v}
+    check(set(after) == {"probe", "grouped_apply"},
+          f"launches after the handover onto WIDE_SPEC {la['after']}")
+    check(len(la["queue_depths"]["before"]) == n_shards
+          and la["queue_depths"]["after"] == [sum(la["queue_depths"]
+                                                  ["before"])],
+          f"queue depths at handover {la['queue_depths']}")
+    check(run_a["shed_queue_full"] > 0
+          and len(clients.shed.get(n_shards, [])) == n_shards,
+          f"no per-shard shedding: {clients.shed}")
+    t = router.table
+    check(to_dict(t.config, t.state) == oracle.d, "router A final content")
+
+    # B: local -> sharded, submits after the handover
+    served_path = t.save(str(ROOT / "build" / "chip_smoke" / "served.npz"))
+    table = Table.restore(served_path, main_spec, device=dev)
+    router = Router(table, RouterConfig(**SERVE_CONFIG),
+                    cost_model=measure_cost_model(table))
+    router.warmup()
+    clients = ServeClients(rng, oracle, fresh_b, absent, SHARD_SERVE_CLIENTS,
+                           SHARD_SERVE_REQUESTS)
+    t0 = time.perf_counter()
+    lb, service_b, handover_b, virtual_b = serve_requests(router, clients,
+                                                          shard_spec)
+    run_b = served(router, clients, lb, service_b, virtual_b,
+                   time.perf_counter() - t0)
+    add(lb["before"], lb["handover"], lb["after"])
+    one_per_shard(lb["before"], lb["calls_before"], 1,
+                  ("fused_probe", "fused_apply"), "local router")
+    one_per_shard(lb["after"], lb["calls_after"], n_shards,
+                  ("fused_probe", "fused_apply"), "router after the handover")
+    qd = lb["queue_depths"]
+    check(len(qd["before"]) == 1 and qd["after"] == qd["recount_after"]
+          and len(qd["after"]) == n_shards
+          and sum(qd["after"]) == qd["before"][0],
+          f"re-homed queue depths {qd}")
+    t = router.table
+    check(not bool(t.state.error.any()), "router B error flag")
+    check(to_dict(t.config, t.state) == oracle.d, "router B final content")
+    want_k, want_v = image_of(oracle)
+    img = extract_image(t)
+    check(np.array_equal(img.keys, want_k)
+          and np.array_equal(img.values, want_v), "router B image")
+
+    # C: serve_closed_loop on SHARD_SPEC, handed over onto the local main
+    # geometry (the same aggregate bits)
+    zero_counts()
+    t0 = time.perf_counter()
+    loop = serve_closed_loop(
+        TableSpec(**SHARD_SPEC, backend="cuda", resize_policy=dataclasses
+                  .replace(POLICY, min_depth=SHARD_SPEC["initial_depth"])),
+        n_clients=LOOP_CLIENTS, ops_per_client=LOOP_OPS, device=dev,
+        mix="churn", seed=seed, router_config=RouterConfig(**LOOP_CONFIG),
+        handover_at=0.5, handover_spec=TableSpec(
+            **MAIN_SPEC, backend="cuda", resize_policy=dataclasses.replace(
+                POLICY, min_depth=MAIN_SPEC["initial_depth"])))
+    loop_s = time.perf_counter() - t0
+    loop_launches = read_counts()
+    add(loop_launches)
+    check(loop["ok"] and loop["handovers"] == 1 and loop["dropped"] == 0,
+          f"sharded serve_closed_loop: {loop['mismatch_examples']}")
+    check(loop_launches["fused_apply"] > 0 and loop_launches["fused_probe"]
+          > 0, f"sharded serve_closed_loop launches {loop_launches}")
+
+    # D: chaos across placements
+    spec, trace, schedule = chaos_setup(
+        "chaos_reshard", placement="sharded", seed=seed,
+        ops=SHARD_CHAOS_OPS, kinds=SHARD_CHAOS_KINDS,
+        n_events=SHARD_CHAOS_EVENTS)
+    full = chaos_setup("chaos_reshard", placement="sharded", seed=seed,
+                       ops=CHAOS_OPS, kinds=SHARD_CHAOS_KINDS)[2]
+    zero_counts()
+    t0 = time.perf_counter()
+    rep = chaos_replay(spec, trace, schedule, device=dev,
+                       shard_counts=(2, 4, 8), raise_on_mismatch=False)
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    chaos_launches = read_counts()
+    add(chaos_launches)
+    moves = cross_placement_moves(rep, spec.placement)
+    check(rep["ok"] and not rep["error_flag"]
+          and rep["status_mismatches"] == rep["content_mismatches"] == 0,
+          f"sharded chaos: {rep['mismatch_examples']}")
+    check(rep["events_skipped"] == 0
+          and all(r["digest_ok"] for r in rep["events"]),
+          f"sharded chaos events {rep['events']}")
+    check(moves > 0, f"no cross-placement move: {rep['events']}")
+    check(chaos_launches["fused_apply"] > 0, f"chaos launches "
+          f"{chaos_launches}")
+
+    main_serving = LINES["serving_path"]
+    emit({"phase": "sharded_serving_path", "spec": SHARD_SPEC,
+          "n_shards": n_shards,
+          "mismatches": {"status": 0, "content": 0},
+          "dropped": run_a["dropped"] + run_b["dropped"],
+          "handovers": run_a["handovers"] + run_b["handovers"],
+          "sharded_to_local": dict(run_a, config=SHARD_SERVE_CONFIG,
+                                   handover_to=WIDE_SPEC,
+                                   handover_s=handover_a,
+                                   cost_model={"base_s": cost.base_s,
+                                               "chunk_s": cost.chunk_s}),
+          "local_to_sharded": dict(run_b, config=SERVE_CONFIG,
+                                   spec=MAIN_SPEC, handover_to=SHARD_SPEC,
+                                   handover_s=handover_b),
+          "main_serving_requests_per_service_s":
+              main_serving["requests_per_service_s"],
+          "main_serving_total_ms": main_serving["total_ms"],
+          "clients": SHARD_SERVE_CLIENTS,
+          "requests_per_client": SHARD_SERVE_REQUESTS,
+          "closed_loop": {
+              "clients": LOOP_CLIENTS, "ops_per_client": LOOP_OPS,
+              "mix": "churn", "ok": loop["ok"],
+              "completed": loop["completed"],
+              "status_mismatches": loop["status_mismatches"],
+              "content_mismatches": loop["content_mismatches"],
+              "handovers": loop["handovers"], "dropped": loop["dropped"],
+              "queue_depths": loop["queue_depths"],
+              "total_ms": {k: loop["total"][k]
+                           for k in ("p50_ms", "p99_ms", "p999_ms")},
+              "launches": loop_launches, "wall_s": loop_s},
+          "chaos": {
+              "scenario": "chaos_reshard", "seed": seed,
+              "kinds": list(SHARD_CHAOS_KINDS), "shard_counts": [2, 4, 8],
+              "spec": {k: getattr(spec, k) for k in (
+                  "placement", "shard_bits", "dmax", "pool_size",
+                  "n_lanes")},
+              "checked_ops": rep["mutations"] + rep["reads"],
+              "steps": rep["steps"], "event_counts": rep["event_counts"],
+              "events_skipped": rep["events_skipped"],
+              "moves": [r["to"] for r in rep["events"] if "to" in r],
+              "cross_placement_moves": moves,
+              "invariant_shards": [r["invariant_shards"]
+                                   for r in rep["events"]],
+              "digest_ok": [r["digest_ok"] for r in rep["events"]],
+              "final_placement": rep["placement"],
+              "error_flag": rep["error_flag"], "launches": chaos_launches,
+              "seconds": chaos_s},
+          "reduced": {"requests_per_client": [SERVE_REQUESTS,
+                                              SHARD_SERVE_REQUESTS],
+                      "ops": [CHAOS_OPS, SHARD_CHAOS_OPS],
+                      "n_events": [len(full), len(schedule)]},
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the training path — the launcher at full width, checkpoints
+# with the main table alongside, resume, every family against the CPU
+
+
+def n_params(cfg) -> int:
+    from repro_torch.models import model as M
+    return sum(int(np.prod(leaf.shape)) for leaf in _spec_leaves(
+        M.param_spec(cfg)))
+
+
+def _spec_leaves(spec):
+    for v in spec.values():
+        yield from _spec_leaves(v) if isinstance(v, dict) else (v,)
+
+
+def attention_pairs(cfg, seq: int) -> int:
+    """(query, key) pairs the causal attention of every layer computes:
+    the whole prefix on global layers, the last ``window`` positions on
+    windowed ones."""
+    from repro_torch.models.model import is_global_layer
+    if not cfg.has_attn():
+        return 0
+    q = np.arange(seq, dtype=np.int64) + 1
+    total = 0
+    for i in range(cfg.n_layers):
+        glob = cfg.layer_kind == "hybrid" and is_global_layer(cfg, i)
+        w = 0 if glob else cfg.window
+        total += int(np.minimum(q, w).sum() if w > 0 else q.sum())
+    return total
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """A training step's FLOPs: 6 x parameters x tokens, plus the
+    attention's QK^T and PV products (2 x 2 x head_dim FLOPs a head and a
+    pair forward, three times that with the backward)."""
+    attn = 3 * 4 * batch * cfg.n_heads * cfg.head_dim * attention_pairs(
+        cfg, seq)
+    return 6.0 * n_params(cfg) * batch * seq + attn
+
+
+class TrainRun:
+    """``repro_torch.launch.train.main`` with its standard output captured
+    (the per-step JSON lines parsed), CUDA events around every train step,
+    host timers around checkpoint saves and restores, and the peak device
+    memory."""
+
+    def __init__(self, argv, tables=None):
+        import contextlib
+        import io
+        from repro_torch.launch import train as launch
+        from repro_torch.training import checkpoint as C
+
+        self.events, self.ckpt = [], {"save_s": [], "restore_s": []}
+        make_step, save, restore = launch.make_train_step, C.save, C.restore
+
+        def timed_step(cfg, tc):
+            step = make_step(cfg, tc)
+
+            def run(state, batch):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                out = step(state, batch)
+                e[1].record()
+                self.events.append(e)
+                return out
+            return run
+
+        def timed(name, fn):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.ckpt[name].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        buf = io.StringIO()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch.make_train_step = timed_step
+        C.save, C.restore = timed("save_s", save), timed("restore_s", restore)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = launch.main(argv, tables=tables)
+        finally:
+            launch.make_train_step, C.save, C.restore = make_step, save, \
+                restore
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - t0
+        check(rc == 0, f"launcher exited {rc}")
+        self.max_memory = torch.cuda.max_memory_allocated()
+        self.lines = buf.getvalue().splitlines()
+        self.steps = [json.loads(ln.split(" STRAGGLER")[0])
+                      for ln in self.lines if ln.startswith("{")]
+        self.step_ms = [a.elapsed_time(b) for a, b in self.events]
+
+    def summary(self, cfg, batch, seq):
+        ms = float(np.mean(self.step_ms[1:])) if len(self.step_ms) > 1 \
+            else self.step_ms[0]
+        flops = train_flops(cfg, batch, seq)
+        return {"losses": [r["loss"] for r in self.steps],
+                "grad_norms": [r["grad_norm"] for r in self.steps],
+                "step_ms": self.step_ms, "ms_per_step": ms,
+                "tokens_per_s": batch * seq / ms * 1e3,
+                "max_memory_allocated": self.max_memory,
+                "step_flops": flops,
+                "bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                "bound_by": "operations (dense bf16 peak 989 TFLOP/s)",
+                "wall_s": self.wall_s}
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def training_path(t_main, dev, seed):
+    """The launcher at full-width smollm-135m with checkpoints (the main
+    table alongside) and a resume that replays steps 5-8; the checkpointed
+    table restored into SHARD_SPEC; full-width hymba-1.5b; every family's
+    smoke train step on the card against the CPU."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.snapshot import extract_image
+    from repro_torch.table_api import TableSpec
+    from repro_torch.training import checkpoint as C
+
+    t_phase = time.perf_counter()
+    base = ROOT / "build" / "chip_smoke"
+    ck, ck4 = base / "ckpt", base / "ckpt_resume"
+    for d in (ck, ck4):
+        shutil.rmtree(d, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+            "--seq-len", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--device", str(dev)]
+    cfg = get_config(TRAIN_ARCH)
+    run = TrainRun(argv + ["--ckpt-dir", str(ck)], tables={"main": t_main})
+    losses = [r["loss"] for r in run.steps]
+    check([r["step"] for r in run.steps] == list(range(1, TRAIN_STEPS + 1))
+          and all(np.isfinite(losses)), f"{TRAIN_ARCH} steps {run.steps}")
+    check(sorted(p.name for p in ck.iterdir())
+          == [f"step_{TRAIN_CKPT_EVERY}", f"step_{TRAIN_STEPS}"],
+          f"checkpoints {list(ck.iterdir())}")
+    # auto-resume takes the newest step: resume on a copy holding step 4
+    # (hard links: the launcher only reads it)
+    ck4.mkdir(parents=True)
+    shutil.copytree(ck / f"step_{TRAIN_CKPT_EVERY}",
+                    ck4 / f"step_{TRAIN_CKPT_EVERY}", copy_function=os.link)
+    resumed = TrainRun(argv + ["--ckpt-dir", str(ck4)])
+    check(resumed.lines[0] == f"resumed from step {TRAIN_CKPT_EVERY} "
+          f"(data offset {TRAIN_CKPT_EVERY})", f"resume: {resumed.lines[:2]}")
+    replay = [r["loss"] for r in resumed.steps]
+    cont = losses[TRAIN_CKPT_EVERY:]
+    check([r["step"] for r in resumed.steps]
+          == list(range(TRAIN_CKPT_EVERY + 1, TRAIN_STEPS + 1)),
+          f"resumed steps {resumed.steps}")
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(replay, cont))
+    check(resume_err <= 1e-3, f"resume losses {replay} against {cont}")
+
+    # the checkpointed table into the sharded geometry
+    spec = TableSpec(**SHARD_SPEC, backend="cuda")
+    zero_counts()
+    t0 = time.perf_counter()
+    ts = C.restore_table(str(ck), TRAIN_STEPS, "main", spec, dev)
+    torch.cuda.synchronize()
+    table_restore_s = time.perf_counter() - t0
+    table_launches = read_counts()
+    want = {"fused_apply": spec.n_shards * ts.seq}
+    check({k: v for k, v in table_launches.items() if v} == want,
+          f"table restore launches {table_launches}, want {want}")
+    a, b = extract_image(t_main), extract_image(ts)
+    check(np.array_equal(a.keys, b.keys)
+          and np.array_equal(a.values, b.values),
+          "the checkpointed table's image differs from the main one")
+    del ts
+    smollm = dict(run.summary(cfg, TRAIN_BATCH, TRAIN_SEQ),
+                  params=n_params(cfg))
+
+    hcfg = get_config(HYBRID_ARCH)
+    hrun = TrainRun(["--arch", HYBRID_ARCH, "--steps", str(HYBRID_STEPS),
+                     "--seq-len", str(HYBRID_SEQ), "--global-batch",
+                     str(HYBRID_BATCH), "--device", str(dev)])
+    hymba = dict(hrun.summary(hcfg, HYBRID_BATCH, HYBRID_SEQ),
+                 params=n_params(hcfg))
+    check(len(hrun.steps) == HYBRID_STEPS
+          and all(np.isfinite(hymba["losses"]))
+          and all(np.isfinite(hymba["grad_norms"])),
+          f"{HYBRID_ARCH} steps {hrun.steps}")
+
+    t0 = time.perf_counter()
+    families = family_train_checks(seed, dev)
+    families_s = time.perf_counter() - t0
+    ckpt_dir = ck / f"step_{TRAIN_CKPT_EVERY}"
+    emit({"phase": "training_path", "gpu": smi_line(),
+          "smollm": dict(smollm, arch=TRAIN_ARCH, seq=TRAIN_SEQ,
+                         batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                         config={k: getattr(cfg, k) for k in (
+                             "n_layers", "d_model", "n_heads", "n_kv_heads",
+                             "head_dim", "d_ff", "vocab_size", "dtype",
+                             "remat")}),
+          "resume": {"from_step": TRAIN_CKPT_EVERY, "losses": replay,
+                     "continuous": cont, "max_rel_loss_diff": resume_err,
+                     "restore_s": resumed.ckpt["restore_s"],
+                     "ms_per_step": float(np.mean(resumed.step_ms))},
+          "checkpoint": {"save_s": run.ckpt["save_s"],
+                         "bytes_per_step": dir_bytes(ckpt_dir),
+                         "table_image_bytes": (ckpt_dir / "table_main.npz")
+                         .stat().st_size},
+          "table_restore": {"spec": SHARD_SPEC, "seconds": table_restore_s,
+                            "transactions": int(want["fused_apply"]
+                                                // spec.n_shards),
+                            "launches": table_launches,
+                            "image_equals_main": True},
+          "hymba": dict(hymba, arch=HYBRID_ARCH, seq=HYBRID_SEQ,
+                        batch=HYBRID_BATCH, steps=HYBRID_STEPS,
+                        config={k: getattr(hcfg, k) for k in (
+                            "n_layers", "d_model", "n_heads", "n_kv_heads",
+                            "head_dim", "ssm_state", "window",
+                            "global_every", "dtype", "remat")}),
+          "families": families, "families_s": families_s,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return table_launches
+
+
+def family_train_checks(seed, dev, tolerances=FAMILY_TOLERANCES):
+    """One ``train_step`` of every family's smoke config on ``dev`` against
+    the CPU from the same weights and batch: loss and gradient norm
+    (relative) and every updated parameter (rtol = atol) within each
+    dtype's tolerance. Returns the worst error per (family, dtype)."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import init_opt_state, tree_leaves
+
+    out = {}
+    for arch in sorted(ARCHS):
+        out[arch] = {}
+        for dtype, tol in tolerances:
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+            extras = {}
+            if cfg.n_prefix_embeds:
+                extras["prefix_embeds"] = ((cfg.n_prefix_embeds,
+                                            cfg.d_model), "float32")
+            if cfg.enc_layers:
+                extras["enc_frames"] = ((64, cfg.d_model), "float32")
+            batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=seed,
+                                extras=extras).batch_at(0)
+            p_cpu = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                                  "cpu")
+            p_dev = M.params_from_numpy(tree_numpy(p_cpu), cfg, dev)
+            res = []
+            for p, d in ((p_cpu, "cpu"), (p_dev, dev)):
+                st = TS.TrainState(p, init_opt_state(p))
+                st, m = TS.train_step(cfg, TS.TrainConfig(), st, {
+                    k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+                res.append((st, m))
+            (sc, mc), (sd, md) = res
+            worst = 0.0
+            for k in ("loss", "grad_norm"):
+                err = abs(float(md[k]) - float(mc[k])) / abs(float(mc[k]))
+                check(err <= tol, f"{arch} {dtype} {k}: {md[k]} against "
+                      f"{mc[k]}")
+                worst = max(worst, err)
+            for a, b in zip(tree_leaves(sd.params), tree_leaves(sc.params)):
+                bad, err = logit_err(a.cpu(), b, tol)
+                check(not bad, f"{arch} {dtype} params: max err {err}")
+                worst = max(worst, err)
+            out[arch][dtype] = worst
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3320,9 +3979,13 @@ def main() -> int:
     t = baselines_path(t, rng, dev)
     sharded = sharded_path(t, rng, dev)
     llm = llm_serving_path(args.seed, dev)
+    sharded_serving = sharded_serving_path(rng, dev, args.seed)
+    training = training_path(t, dev, args.seed)
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_llm"] = llm[k["name"]]
+        k["launches_sharded_serving"] = sharded_serving[k["name"]]
+        k["launches_training"] = training[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,15 +43,6 @@ from repro_torch.core.policy import ResizePolicy
 PLACEMENTS = ("local", "sharded")
 
 
-def refuse_sharded(placement: str, what: str) -> None:
-    """Raise ``NotImplementedError`` unless ``placement`` is local: ``what``
-    is ported for local placement only (its sharded half is not ported
-    yet)."""
-    if placement != "local":
-        raise NotImplementedError(
-            f"{what} is ported for placement='local' only")
-
-
 class ValueField(NamedTuple):
     """One leaf of a value schema (hashable normal form)."""
 

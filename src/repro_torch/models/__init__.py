@@ -1,3 +1,3 @@
-"""The decode side of the model stack: configs in ``ModelConfig``,
-parameters, the dense decode step (``model.py``) and its layers, MoE and
-SSM blocks."""
+"""The model stack: configs in ``ModelConfig``, parameters, the training
+and prefill forward, the dense decode step (``model.py``) and its layers,
+MoE and SSM blocks."""

@@ -1,5 +1,6 @@
-"""Transformer building blocks for decoding: RMSNorm, RoPE, single-position
-GQA attention over a cache (whole or a window slice), encoder-decoder cross
+"""Transformer building blocks: RMSNorm, RoPE, chunked GQA attention for
+training and prefill (causal or not, sliding window), single-position GQA
+attention over a cache (whole or a window slice), encoder-decoder cross
 attention and the gated MLPs. The JAX package's ``models/layers.py``, op
 for op in its dtypes: bf16 products, fp32 norm, RoPE angles, attention
 logits and softmax.
@@ -7,9 +8,6 @@ logits and softmax.
 JAX's ``preferred_element_type=float32`` on a bf16 product is written as
 the product of the fp32 upcasts: bf16 × bf16 is exact in fp32, so both sum
 the same exact terms in fp32.
-
-The flash-attention forward (``flash_attention``, ``attention_block``) is
-the training and prefill path and is not ported yet.
 """
 from __future__ import annotations
 
@@ -39,6 +37,111 @@ def rope(x, positions, theta=10000.0):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _attend_block(q, k, v, mask, scale):
+    """One (q-chunk × kv-chunk) attention block with fp32 logits.
+
+    q [B,Tq,H,D], k/v [B,Tk,KV,D] with H = KV*G; ``mask`` broadcasts to
+    [B,KV,G,Tq,Tk]. Returns unnormalized (out [B,Tq,H,D] fp32, row_max
+    [B,H,Tq], row_sum [B,H,Tq])."""
+    B, Tq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Tq, KV, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1)                            # [B,KV,G,Tq]
+    # a fully masked row has m = NEG_INF and exp(0) = 1 on its masked
+    # entries: they are zeroed explicitly
+    p = torch.where(logits > NEG_INF * 0.5,
+                    torch.exp(logits - m[..., None]), 0.0)
+    s = p.sum(dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return (out.reshape(B, Tq, H, D), m.reshape(B, KV * G, Tq),
+            s.reshape(B, KV * G, Tq))
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, chunk=1024,
+                    differentiable=False):
+    """Memory-bounded attention, the JAX package's chunked online softmax:
+    a loop over q chunks and, inside it, over the kv chunks that can hold
+    an unmasked key (``lo .. hi``: up to the diagonal for causal attention
+    and only the window's chunks for sliding-window attention).
+
+    ``window`` > 0 keeps the last ``window`` positions; 0 (or less) is
+    global. q [B,S,H,D]; k,v [B,S,KV,D] → [B,S,H,D]. A length that is not
+    a chunk multiple is padded and the padded keys masked.
+
+    The JAX package walks every kv chunk with masking when
+    ``differentiable`` (reverse-mode AD cannot cross its dynamic loop
+    bounds). Eager autograd crosses a Python loop with any bounds, and a
+    fully masked chunk adds exactly nothing to the online softmax (its
+    weight is exp(NEG_INF - m) = 0), so both modes take the skip-ahead
+    loop here and equal the JAX function's; the argument is kept for the
+    JAX signature."""
+    del differentiable
+    B, S_real, H, D = q.shape
+    KV = k.shape[2]
+    scale = D ** -0.5
+    c = min(chunk, S_real)
+    pad = -S_real % c
+    if pad:  # pad to a chunk multiple; padded keys are masked out below
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    S = S_real + pad
+    nq = S // c
+    w = window if window > 0 else S
+    G = H // KV
+    pos = torch.arange(S, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q_i = q[:, qi * c:(qi + 1) * c]
+        qpos = pos[qi * c:(qi + 1) * c, None]            # [c,1]
+        acc = torch.zeros((B, c, H, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, c), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        s = torch.zeros((B, H, c), dtype=torch.float32, device=q.device)
+        lo = max(0, qi - (w + c - 1) // c) if window > 0 else 0
+        hi = qi + 1 if causal else nq
+        for j in range(lo, hi):
+            kpos = pos[None, j * c:(j + 1) * c]          # [1,c]
+            mask = kpos <= qpos if causal else torch.ones(
+                (c, c), dtype=torch.bool, device=q.device)
+            mask = mask & (kpos < S_real)                # padded keys
+            if window > 0:
+                mask = mask & (kpos > qpos - w)
+            o_j, m_j, s_j = _attend_block(
+                q_i, k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                mask.expand(B, KV, G, c, c), scale)
+            m_new = torch.maximum(m, m_j)
+            alpha = torch.exp(m - m_new)
+            beta = torch.exp(m_j - m_new)
+            acc = acc * alpha.transpose(1, 2)[..., None] + \
+                o_j * beta.transpose(1, 2)[..., None]
+            s = s * alpha + s_j * beta
+            m = m_new
+        out = acc / s.transpose(1, 2)[..., None].clamp(min=1e-30)
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :S_real]
+
+
+def attention_block(p, x, positions, *, n_heads, n_kv_heads, head_dim,
+                    causal=True, window=0, chunk=1024, rope_theta=10000.0,
+                    qkv_bias=False, differentiable=False):
+    """Full attention sub-layer (projections + flash attention)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    o = flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
+                        differentiable=differentiable)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 def _attend_cached(q, k, v, valid, bf16_partials):

@@ -1,7 +1,8 @@
-"""The decode side of the unified language model, in PyTorch: the JAX
-package's ``models/model.py`` for every assigned family (dense GQA decoders,
+"""The unified language model, in PyTorch: the JAX package's
+``models/model.py`` for every assigned family (dense GQA decoders,
 fine-grained MoE, pure SSM, hybrid attention + SSM, encoder-decoder, VLM
-decoders with stubbed frontends).
+decoders with stubbed frontends) — the training and prefill forward
+(:func:`forward`, :func:`encode`) and the decode step.
 
 Parameters are the JAX package's nested dict, layers stacked on a leading
 ``[L, ...]`` axis, so every leaf has one counterpart:
@@ -16,8 +17,10 @@ over views of the stacked cache. The JAX package's sharding constraints
 (``_constrain_kv``, ``constrain``) are the identity on one device and have
 no counterpart here.
 
-The training and prefill forward (``forward``, ``encode``) and the mesh
-sharding (``models/sharding.py``) are not ported yet.
+:func:`forward` runs the layer stack as a Python loop over layer views of
+the stacked parameters, each layer under ``torch.utils.checkpoint`` when
+``cfg.remat`` (the JAX package's ``jax.checkpoint`` of the scan body).
+The mesh sharding (``models/sharding.py``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.table import resolve_device
 from repro_torch.models import layers as L
@@ -403,7 +407,7 @@ def _decode_layer(cfg: ModelConfig, lp, lc, x, pos, positions, memory,
             lp["cross"], h, memory, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
 
-    return feed_forward(cfg, lp, x)
+    return mlp_block(cfg, lp, x)[0]
 
 
 def project_qkv(cfg: ModelConfig, lp, x, positions):
@@ -421,20 +425,22 @@ def project_qkv(cfg: ModelConfig, lp, x, positions):
             L.rope(k, positions, cfg.rope_theta), v)
 
 
-def feed_forward(cfg: ModelConfig, lp, x):
-    """x plus the layer's gated MLP or MoE block on its normalized x."""
+def mlp_block(cfg: ModelConfig, lp, x):
+    """(x plus the layer's gated MLP or MoE block on its normalized x, the
+    MoE aux loss or a float32 zero)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.mlp_kind in ("swiglu", "geglu"):
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
         act = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
         x = x + L.gated_mlp(lp["mlp"], h, activation=act)
     elif cfg.mlp_kind == "moe":
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        y, _ = M.moe_block(lp["moe"], h, n_experts=cfg.n_experts,
-                           top_k=cfg.top_k,
-                           capacity_factor=cfg.capacity_factor,
-                           n_shared=cfg.n_shared_experts)
+        y, aux = M.moe_block(lp["moe"], h, n_experts=cfg.n_experts,
+                             top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor,
+                             n_shared=cfg.n_shared_experts)
         x = x + y
-    return x
+    return x, aux
 
 
 def layer_views(tree, i):
@@ -499,15 +505,118 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     return logits, cache
 
 
-def forward(cfg: ModelConfig, params, batch, differentiable: bool = True):
-    """The training / prefill forward: not ported yet."""
-    raise NotImplementedError(
-        "forward (flash attention, the SSD chunked scan, the encoder) is "
-        "the training slice of ROADMAP.md §1 item 6, not ported yet")
+# ---------------------------------------------------------------------------
+# forward (training / prefill)
+
+
+def _layer_fwd(cfg: ModelConfig, lp, x, positions, memory, window,
+               differentiable):
+    """One decoder layer: x [B,S,D] → (x', MoE aux). ``window`` is the
+    layer's attention window (0 on a hybrid stack's global layers)."""
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, chunk=cfg.attn_chunk,
+              rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
+              differentiable=differentiable)
+    ssm_kw = dict(headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                  chunk=cfg.ssm_chunk, conv_width=cfg.ssm_conv)
+    if cfg.layer_kind == "attn":
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + L.attention_block(lp["attn"], h, positions, causal=True,
+                                  window=window, **kw)
+    elif cfg.layer_kind == "mamba":
+        h = L.rms_norm(x, lp["ln_ssm"], cfg.norm_eps)
+        x = x + S.ssm_block(lp["ssm"], h, **ssm_kw)
+    else:  # hybrid: parallel attention + SSM heads (Hymba)
+        ha = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        hs = L.rms_norm(x, lp["ln_ssm"], cfg.norm_eps)
+        attn_out = L.attention_block(lp["attn"], ha, positions, causal=True,
+                                     window=window, **kw)
+        ssm_out = S.ssm_block(lp["ssm"], hs, **ssm_kw)
+        x = x + 0.5 * attn_out + 0.5 * ssm_out
+
+    if memory is not None:
+        h = L.rms_norm(x, lp["ln_cross"], cfg.norm_eps)
+        x = x + L.cross_attention_block(lp["cross"], h, memory,
+                                        n_heads=cfg.n_heads,
+                                        n_kv_heads=cfg.n_kv_heads,
+                                        head_dim=cfg.head_dim)
+    return mlp_block(cfg, lp, x)
+
+
+def _run_stack(cfg: ModelConfig, stack, x, positions, memory, n_layers,
+               differentiable):
+    """The layer stack, each layer recomputed in the backward pass when
+    ``cfg.remat``; returns (x, the layers' summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_layers):
+        # a hybrid stack's global layers attend over everything; the attn
+        # layers keep the config's window (the JAX forward's rule)
+        glob = cfg.layer_kind == "hybrid" and is_global_layer(cfg, i)
+        window = 0 if glob else cfg.window
+
+        def body(x, lp, window=window):
+            return _layer_fwd(cfg, lp, x, positions, memory, window,
+                              differentiable)
+
+        lp = layer_views(stack, i)
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, a = body(x, lp)
+        aux = aux + a
+    return x, aux
 
 
 def encode(cfg: ModelConfig, params, enc_inputs):
-    """The encoder of the enc-dec archs: not ported yet."""
-    raise NotImplementedError(
-        "encode is the training slice of ROADMAP.md §1 item 6, not ported "
-        "yet; decode_step reads the encoder memory from the cache")
+    """Encoder for enc-dec archs. enc_inputs: frame embeddings [B,S,D]
+    (the modality frontend is a stub)."""
+    x = enc_inputs.to(cfg.torch_dtype)
+    if "frame_proj" in params:
+        x = torch.einsum("bsd,de->bse", x, params["frame_proj"])
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, chunk=cfg.attn_chunk,
+              rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
+
+    def body(x, lp):
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        x = x + L.attention_block(lp["attn"], h, pos, causal=False, **kw)
+        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        return x + L.gated_mlp(lp["mlp"], h)
+
+    stack = params["encoder"]["layers"]
+    for i in range(cfg.enc_layers):
+        lp = layer_views(stack, i)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x = body(x, lp)
+    return L.rms_norm(x, params["encoder"]["ln_f"], cfg.norm_eps)
+
+
+def forward(cfg: ModelConfig, params, batch, differentiable: bool = True):
+    """Training/prefill forward. batch: tokens [B,S] (+ optional
+    prefix_embeds [B,P,D], enc_frames [B,Se,D]). Returns (logits
+    [B,S,V_pad] in the model dtype, aux: the MoE aux loss summed over
+    layers, float32)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    dt = cfg.torch_dtype
+    x = params["embed"].to(dt)[tokens.long()]
+    # gemma-style scale, rounded to the model dtype first
+    x = x * torch.full((), cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    if cfg.n_prefix_embeds:
+        x = torch.cat([batch["prefix_embeds"].to(dt), x], dim=1)
+    S_all = x.shape[1]
+    positions = torch.arange(S_all, device=x.device).expand(B, S_all)
+
+    memory = None
+    if cfg.enc_layers:
+        memory = encode(cfg, params, batch["enc_frames"])
+
+    x, aux = _run_stack(cfg, params["layers"], x, positions, memory,
+                        cfg.n_layers, differentiable)
+    logits = lm_head(cfg, params, x)
+    if cfg.n_prefix_embeds:
+        logits = logits[:, cfg.n_prefix_embeds:]
+    return logits, aux

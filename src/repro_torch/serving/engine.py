@@ -142,7 +142,7 @@ def paged_layers(cfg: ModelConfig, pc: KV.PagedConfig, params, st, x,
         v_c = pv[page_ids].reshape(B, S, pc.n_kv_heads, pc.head_dim)
         o = L.decode_attention(q, k_c, v_c, st.lengths, window=cfg.window)
         x = x + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
-        x = M.feed_forward(cfg, lp, x)
+        x = M.mlp_block(cfg, lp, x)[0]
     return x
 
 

@@ -1,9 +1,11 @@
 """Bounded per-shard admission queues for the request router.
 
-The JAX package's ``repro/serving/router/queue.py``, unchanged in
-behaviour. Requests are routed to the shard that will own their key — the
-same top ``shard_bits`` of the hash the sharded placement itself uses
-(local placement is one shard) — and each shard's queue depth is bounded:
+The JAX package's ``repro/serving/router/queue.py``, plus
+:meth:`ShardQueues.rehome`, which a handover calls to recount the queued
+requests under the successor's shards. Requests are routed to the shard
+that will own their key — the same top ``shard_bits`` of the hash the
+sharded placement itself uses (local placement is one shard) — and each
+shard's queue depth is bounded:
 admission fails with ``SHED_QUEUE_FULL`` when the key's home shard is
 backed up, so one hot shard sheds load instead of growing an unbounded
 queue in front of everyone. Within the admitted set, reads and writes
@@ -58,7 +60,7 @@ class Request:
 def shard_of(key: int, spec) -> int:
     """The key's home shard: top ``shard_bits`` of the spec's hash — the
     exact routing the sharded placement applies on-device (0 for local
-    placement, the only one the port's specs take today)."""
+    placement)."""
     if spec.placement != "sharded":
         return 0
     h = _HASHES[spec.hash_name](int(key))
@@ -133,6 +135,23 @@ class ShardQueues:
 
     def take_writes(self, k: int) -> List[Request]:
         return self._take(self._writes, k)
+
+    # -- re-homing ---------------------------------------------------------
+
+    def rehome(self, spec) -> None:
+        """Re-home every queued request under ``spec`` (a handover's
+        successor): one depth counter per successor shard, each request's
+        ``shard`` recomputed from its key, both FIFOs kept in order. A
+        shard may come out above its bound; admission then sheds there
+        until it drains. (The JAX package keeps the predecessor's counters
+        and shard indices across a handover, and indexes past them after a
+        local -> sharded one.)"""
+        self.n_shards = spec.n_shards
+        self._depth = [0] * self.n_shards
+        for q in (self._reads, self._writes):
+            for req in q:
+                req.shard = shard_of(req.key, spec)
+                self._depth[req.shard] += 1
 
 
 __all__ = [

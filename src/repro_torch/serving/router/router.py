@@ -1,12 +1,12 @@
 """The request router: adaptive batching + admission control + upgrades.
 
-The port of the JAX package's ``repro/serving/router/router.py`` for local
-placement. Many concurrent client streams submit *individual*
-lookup/upsert/delete requests; the router turns them back into the batched
-combining transactions the table is fast at, without giving up per-request
-latency accounting. One ``Router`` instance owns one
-:class:`repro_torch.table_api.Table` (any backend, any device) and runs
-three control loops:
+The port of the JAX package's ``repro/serving/router/router.py``. Many
+concurrent client streams submit *individual* lookup/upsert/delete
+requests; the router turns them back into the batched combining
+transactions the table is fast at, without giving up per-request latency
+accounting. One ``Router`` instance owns one
+:class:`repro_torch.table_api.Table` (either placement, any backend, any
+device) and runs three control loops:
 
 **Adaptive batching** — admitted requests accumulate in arrival-ordered
 queues; a pump dispatches when there is enough work to amortize the fixed
@@ -30,7 +30,10 @@ deferral never becomes starvation), and (b) *sheds* new writes above
 under a successor spec through its canonical in-memory image
 (``extract_image``/``restore_from_image``). Queued and deferred requests
 are retained verbatim and complete on the successor: zero dropped
-requests, counted and checked (``metrics.dropped``).
+requests, counted and checked (``metrics.dropped``). The queues re-home
+every queued request under the successor's shards, so a handover may
+change the placement or the shard count (the JAX router keeps the
+predecessor's shard counters, which a local -> sharded handover overruns).
 
 Every dispatch ends in a ``.cpu()`` read of its statuses and lookup
 results: that read is the synchronization point, so the measured service
@@ -47,7 +50,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.spec import refuse_sharded
 from repro_torch.serving.router import queue as Q
 from repro_torch.serving.router.costmodel import CostModel, cost_model_for
 from repro_torch.serving.router.metrics import RouterMetrics
@@ -97,12 +99,11 @@ class Router:
         if spec.value_schema is not None:
             raise ValueError(
                 "the serving router routes the raw i32 value mode only")
-        refuse_sharded(spec.placement, "the serving router")
         self.table = table
         self.config = config
         self.clock = clock
         self.cost_model = cost_model or cost_model_for(table)
-        self.queues = ShardQueues(1, config.max_queue_per_shard)
+        self.queues = ShardQueues(spec.n_shards, config.max_queue_per_shard)
         self.metrics = RouterMetrics()
         self.pressure = 0.0
         self._next_rid = 0
@@ -309,15 +310,15 @@ class Router:
         The live table's logical content travels through its canonical
         in-memory image (``repro_torch.core.snapshot``) into a fresh table
         built for ``new_spec`` on ``device`` (default: the live table's
-        device). Queued and deferred requests are **retained verbatim**
-        and complete against the successor; the zero-dropped invariant is
-        checked here and tracked in ``metrics.dropped``. ``new_spec`` may
-        change pool/depth sizing, lane width or backend; an infeasible
-        target raises ``ValueError`` before the swap, leaving the
-        predecessor serving."""
+        device). Queued and deferred requests are **retained verbatim**,
+        in order, re-homed under the successor's shards, and complete
+        against the successor; the zero-dropped invariant is checked here
+        and tracked in ``metrics.dropped``. ``new_spec`` may change
+        pool/depth sizing, lane width, backend, placement or shard count;
+        an infeasible target raises ``ValueError`` before the swap,
+        leaving the predecessor serving."""
         from repro_torch.core import snapshot
 
-        refuse_sharded(new_spec.placement, "the serving router")
         depth_before = len(self.queues)
         image = snapshot.extract_image(self.table)
         self._emit("handover_begin", n_items=image.n_items,
@@ -325,6 +326,7 @@ class Router:
         successor = snapshot.restore_from_image(
             image, new_spec, self.table.device if device is None else device)
         self.table = successor
+        self.queues.rehome(new_spec)
         if warmup:
             # run the successor spec's dispatch shapes during the cutover,
             # not under the first post-upgrade requests

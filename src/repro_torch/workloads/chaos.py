@@ -1,7 +1,7 @@
 """Chaos replay harness: randomized fault injection over any scenario.
 
-The port of the JAX package's ``repro/workloads/chaos.py`` for local
-placement. The replayer (:mod:`repro_torch.workloads.replay`) checks that
+The port of the JAX package's ``repro/workloads/chaos.py``, for both
+placements. The replayer (:mod:`repro_torch.workloads.replay`) checks that
 a table under traffic agrees with the uninterrupted sequential oracle;
 this module makes that check *adversarial*. A seed-deterministic event
 schedule is overlaid on any registry scenario, and at each scheduled step
@@ -10,9 +10,11 @@ while the oracle — the surviving truth — runs uninterrupted:
 
 * ``kill_revive``  — serialize to a durable on-disk image, drop the
   handle, restore under the same spec (the snapshot path);
-* ``reshard``      — save/restore under a *different* geometry: pool
-  resizes at the same hash bits (local placement is the only one the port
-  has), so the oracle's group addressing never moves;
+* ``reshard``      — save/restore under a *different* geometry: local ↔
+  sharded flips and shard-count changes (over the ``shard_counts`` the
+  caller names; every shard lives on the table's one device) plus pool
+  resizes. Candidates preserve the aggregate hash bits
+  (``dmax + shard_bits``), so the oracle's group addressing never moves;
 * ``policy_flap``  — rebuild the handle with a different
   :class:`~repro_torch.core.policy.ResizePolicy`: watermark band swaps,
   budget starvation, detach/reattach. Content-transparent by contract, so
@@ -29,8 +31,8 @@ while the oracle — the surviving truth — runs uninterrupted:
   overwrite *before* its atomic rename, prove the destination still holds
   the intact predecessor image, and revive from it.
 
-After **every** event the harness re-checks the structural invariants
-(:mod:`repro_torch.core.invariants`) and full-content parity: the
+After **every** event the harness re-checks the per-shard structural
+invariants (:mod:`repro_torch.core.invariants`) and full-content parity: the
 digest of the table's canonical snapshot image must equal the streaming
 oracle's rolling multiset digest. Between events, every per-lane status
 and every read is checked in linearization order exactly as in plain
@@ -46,7 +48,7 @@ elimination — ddmin-style, exact under monotone failures) and a JSON
 artifact with the original schedule, the shrunk schedule, and the repro
 command is written for CI to upload.
 
-Everything is deterministic in ``(scenario, seed, scale)``:
+Everything is deterministic in ``(scenario, placement, seed, scale)``:
 the op stream comes from the trace seed, the event schedule from
 :func:`gen_schedule` on the same seed, and event parameters from each
 event's ``arg`` — no wall-clock, no default-constructed RNGs. The table
@@ -68,7 +70,6 @@ import numpy as np
 
 from repro_torch.core.policy import ResizePolicy
 from repro_torch.core.reference import content_digest
-from repro_torch.core.spec import refuse_sharded
 from repro_torch.workloads.generators import DEL, INS, NOP
 from repro_torch.workloads.replay import ReplayMismatch, oracle_for
 from repro_torch.workloads.scenarios import POLICY, get_scenario
@@ -141,12 +142,38 @@ def gen_schedule(total_steps: int, config: ChaosConfig) -> Tuple[ChaosEvent, ...
 # event parameter candidates (all derived from the current spec + ``arg``)
 
 
-def _respec_candidates(spec) -> List[object]:
-    """Successor specs for reshard/handover events: the two pool sizes at
-    the same ``dmax`` (the JAX package's local candidates), so the
-    oracle's group addressing never moves."""
-    return [dataclasses.replace(spec, pool_size=pool)
-            for pool in (spec.pool_size, spec.pool_size + 256)]
+def _agg_bits(spec) -> int:
+    return spec.dmax + (spec.shard_bits if spec.placement == "sharded" else 0)
+
+
+def _respec_candidates(spec, shard_counts=None) -> List[object]:
+    """Successor specs for reshard/handover events, the JAX package's list
+    in its order: local at the aggregate bits with two pool sizes, then
+    each of ``shard_counts`` (powers of two, the JAX package's mesh
+    factory's 2 / 4 / 8) at ``bits - shard_bits`` with two pool sizes.
+    Without ``shard_counts`` a sharded table keeps its shard count and
+    varies only the pool. Every candidate preserves the aggregate hash
+    bits, so a local dmax=b table, a 2-shard dmax=b-1 table and a 4-shard
+    dmax=b-2 table are all the same logical address space — the oracle
+    never needs to re-bit."""
+    bits = _agg_bits(spec)
+    pools = (spec.pool_size, spec.pool_size + 256)
+    out = [dataclasses.replace(spec, placement="local", dmax=bits,
+                               pool_size=pool) for pool in pools]
+    if shard_counts is not None:
+        for n in shard_counts:
+            sb = n.bit_length() - 1
+            if n < 2 or n != 1 << sb:
+                raise ValueError(f"shard count {n} is not a power of two "
+                                 f">= 2")
+            if bits - sb < 1:
+                continue
+            out += [dataclasses.replace(spec, placement="sharded",
+                                        shard_bits=sb, dmax=bits - sb,
+                                        pool_size=pool) for pool in pools]
+    elif spec.placement == "sharded":
+        out += [dataclasses.replace(spec, pool_size=pool) for pool in pools]
+    return out
 
 
 def _policy_candidates(spec) -> Tuple[Optional[ResizePolicy], ...]:
@@ -184,14 +211,13 @@ def chaos_setup(
     and deeper hash bits with ~2 levels of headroom over the peak live
     set (keeping worst-case hash groups far below ``bucket_size``, so
     OVERFLOW stays a non-event) and a bucket pool sized for that peak.
-    ``placement`` must be ``"local"``: a sharded one raises
-    ``NotImplementedError``."""
-    refuse_sharded(placement, "the chaos harness")
+    Aggregate bits are raised symmetrically for both placements."""
     if ops is not None:
-        _, base_trace = get_scenario(name, seed=seed)
+        _, base_trace = get_scenario(name, placement=placement, seed=seed)
         base_est = sum(p.steps * p.batch for p in base_trace.phases)
         scale = max(scale, ops / base_est)
-    spec, trace = get_scenario(name, seed=seed, scale=scale)
+    spec, trace = get_scenario(name, placement=placement, seed=seed,
+                               scale=scale)
     est = sum(p.steps * p.batch for p in trace.phases)
     if est > 4096:
         # beyond the peak floor the base registry geometry can absorb,
@@ -201,9 +227,11 @@ def chaos_setup(
         # doctrine as scenarios._spec — so worst-case hash groups stay far
         # below bucket_size and OVERFLOW remains a non-event
         peak = max(4096, est // 2)
-        bits = max(spec.dmax, math.ceil(math.log2(8 * peak)))
+        bits = max(_agg_bits(spec), math.ceil(math.log2(8 * peak)))
+        extra = spec.shard_bits if spec.placement == "sharded" else 0
         spec = dataclasses.replace(
-            spec, dmax=bits, pool_size=max(spec.pool_size, -(-peak // 2)))
+            spec, dmax=bits - extra,
+            pool_size=max(spec.pool_size, -(-peak // 2)))
         trace = dataclasses.replace(trace,
                                     universe=max(trace.universe, 1 << bits))
     if n_events is None:
@@ -221,6 +249,7 @@ def chaos_replay(
     trace,
     schedule: Sequence[ChaosEvent],
     device=None,
+    shard_counts: Optional[Sequence[int]] = None,
     check: bool = True,
     oracle: str = "streaming",
     raise_on_mismatch: bool = True,
@@ -237,7 +266,10 @@ def chaos_replay(
     harness checks the structural invariants and digest-exact content
     parity. ``oracle`` is ``"streaming"`` (default — O(1)/op, so
     million-op chaos traces stay checkable) or ``"both"`` (adds the
-    materializing cross-check per op).
+    materializing cross-check per op). ``shard_counts`` (e.g. ``(2, 4,
+    8)``) are the shard counts cross-placement re-shard candidates may
+    take; without it, re-shards keep the placement and shard count and
+    change the pool.
 
     ``_inject_digest_step`` is a self-test knob: it corrupts the oracle
     digest after the given step so the failure/shrink/artifact path can be
@@ -246,7 +278,6 @@ def chaos_replay(
     from repro_torch.core import snapshot as S
     from repro_torch.table_api import Table
 
-    refuse_sharded(spec.placement, "the chaos harness")
     if spec.value_schema is not None:
         raise ValueError("chaos drives the raw i32 value mode")
     if oracle not in ("streaming", "both"):
@@ -261,7 +292,7 @@ def chaos_replay(
 
     table = Table.create(spec, device)
     device = table.device
-    base_bits = spec.dmax
+    base_agg = _agg_bits(spec)
     error_seen = False
     steps = mutations = reads = 0
     status_mismatches = content_mismatches = 0
@@ -284,7 +315,7 @@ def chaos_replay(
             raise ReplayMismatch(f"{kind} mismatch: {detail}")
 
     def flag() -> bool:
-        return bool(table.state.error.cpu())
+        return bool(table.state.error.any().cpu())
 
     def rebuild(new_spec) -> None:
         # policy flaps and backend swaps are content-transparent: same
@@ -295,8 +326,9 @@ def chaos_replay(
         spec = new_spec
 
     def post_event_checks(rec: dict) -> None:
+        # a stacked sharded state is checked shard by shard
         I.check_invariants(spec.table_config(), table.state, allow_error=True)
-        rec["invariant_shards"] = 1
+        rec["invariant_shards"] = spec.n_shards
         if stream_ref is not None:
             image = S.extract_image(table)
             got = content_digest(image.keys, image.values)
@@ -329,10 +361,10 @@ def chaos_replay(
             del table
             table = Table.restore(path, spec, device)
         elif ev.kind in ("reshard", "handover"):
-            cands = _respec_candidates(spec)
+            cands = _respec_candidates(spec, shard_counts)
             new_spec = cands[ev.arg % len(cands)]
-            if new_spec.dmax != base_bits:
-                raise AssertionError(f"{new_spec} moved off {base_bits} bits")
+            if _agg_bits(new_spec) != base_agg:
+                raise AssertionError(f"{new_spec} moved off {base_agg} bits")
             rec["to"] = {
                 "placement": new_spec.placement,
                 "shard_bits": new_spec.shard_bits,
@@ -440,8 +472,8 @@ def chaos_replay(
         post_event_checks(rec)
         event_records.append(rec)
         if ev.kind in ("reshard", "handover") and not rec["skipped"]:
-            # re-baseline the trajectory after a geometry change so the
-            # jump is not miscounted as elasticity
+            # placements disagree on per-shard depth: re-baseline the
+            # trajectory so the jump is not miscounted as elasticity
             depth_traj.append(int(table.depth()))
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -668,6 +700,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "(see module docstring)",
     )
     ap.add_argument("--scenario", default="chaos_churn")
+    ap.add_argument("--placement", default="local",
+                    choices=("local", "sharded"))
     ap.add_argument("--device", default="cuda",
                     help="torch device of the table (default cuda)")
     ap.add_argument("--seed", type=int, default=0, help="first seed")
@@ -698,6 +732,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for seed in range(args.seed, args.seed + args.seeds):
         spec, trace, schedule = chaos_setup(
             args.scenario,
+            placement=args.placement,
             seed=seed,
             scale=args.scale,
             ops=args.ops,
@@ -711,13 +746,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 trace,
                 events,
                 device=args.device,
+                # every shard count the JAX package's 8-device mesh
+                # factory hosts is hostable on the one device
+                shard_counts=(2, 4, 8),
                 oracle=args.oracle,
                 raise_on_mismatch=False,
                 _inject_digest_step=args.self_test_fail,
             )
 
         rep = run(schedule)
-        print(f"[chaos] {args.scenario}/{rep['device']} seed={seed}: "
+        print(f"[chaos] {args.scenario}/{args.placement}/{rep['device']} "
+              f"seed={seed}: "
               f"{_summary(rep)}")
         if rep["ok"]:
             continue
@@ -732,6 +771,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             )
         artifact = {
             "scenario": args.scenario,
+            "placement": args.placement,
             "device": args.device,
             "seed": seed,
             "scale": args.scale,
@@ -739,8 +779,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "kinds": list(kinds),
             "repro": (
                 f"python -m repro_torch.workloads.chaos --scenario "
-                f"{args.scenario} --device {args.device} --seed {seed} "
-                f"--scale {args.scale}"
+                f"{args.scenario} --placement {args.placement} "
+                f"--device {args.device} --seed {seed} --scale {args.scale}"
                 + (f" --ops {args.ops}" if args.ops else "")
                 + (f" --events {args.events}" if args.events else "")
             ),

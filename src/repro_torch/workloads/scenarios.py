@@ -22,7 +22,7 @@ table is built), for either placement. The classes:
   keep auto-splitting AND auto-merging, and every post-revive check is
   differential parity evidence for the snapshot subsystem;
 * ``chaos_churn`` / ``chaos_reshard`` — the fault-injection substrate of
-  the chaos harness (``workloads/chaos.py``, local placement): long
+  the chaos harness (``workloads/chaos.py``): long
   multi-direction churn traces whose
   phase plateaus give injected events (kill/revive, N→M re-shard, policy
   flaps, router handover, torn saves, backend swaps) a full spread of

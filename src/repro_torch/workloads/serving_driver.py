@@ -1,7 +1,7 @@
 """Closed-loop multi-client driver for the serving router.
 
-The port of the JAX package's ``repro/workloads/serving_driver.py`` for
-local placement. The churn engine's :mod:`~repro_torch.workloads.replay`
+The port of the JAX package's ``repro/workloads/serving_driver.py``, for
+both placements. The churn engine's :mod:`~repro_torch.workloads.replay`
 drives the facade with
 pre-batched steps; this driver exercises the layer above it: ``n_clients``
 independent clients each keep **one request in flight** (closed loop — a
@@ -37,8 +37,8 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.core.reference import SeqExtHash
-from repro_torch.core.spec import refuse_sharded
 from repro_torch.workloads.generators import LiveSet, OpMix, YCSB_MIXES
+from repro_torch.workloads.replay import oracle_for
 
 
 @dataclasses.dataclass
@@ -113,16 +113,14 @@ def serve_closed_loop(
     ``handover_at`` (a fraction of total ops in ``(0, 1)``) triggers one
     :meth:`Router.handover` onto ``handover_spec`` once that many requests
     have completed — with requests still queued, which is the point. The
-    successor lives on the same device.
+    successor lives on the same device and may have another placement or
+    shard count than ``spec``, at the same aggregate hash bits
+    (``dmax + shard_bits``), which the oracle addresses.
     ``report["ok"]`` requires zero mismatches, zero drops, and every
     admitted request completed.
     """
     from repro_torch.serving.router import DEL, INS, Router, RouterConfig
     from repro_torch.table_api import Table
-
-    for s in (spec, handover_spec):
-        if s is not None:
-            refuse_sharded(s.placement, "serve_closed_loop")
 
     if isinstance(mix, str):
         mix = YCSB_MIXES[mix]
@@ -146,8 +144,7 @@ def serve_closed_loop(
         # growth land in startup, not in the latency histograms
         router.warmup()
     ref: Optional[SeqExtHash] = (
-        SeqExtHash(dmax=spec.dmax, bucket_size=spec.bucket_size,
-                   hash_name=spec.hash_name) if check else None)
+        oracle_for(spec, "materializing") if check else None)
 
     ss = np.random.SeedSequence(seed)
     clients = [

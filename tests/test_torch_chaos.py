@@ -11,7 +11,13 @@
   reaches a Pallas call its JAX version no longer has), give equal
   statuses and reads step by step, equal digests and item counts after
   every event and at the end, and the same depth trajectory and policy
-  counters.
+  counters;
+* a sharded run (``chaos_reshard``, seed 5, scale 0.3, the JAX package's
+  ``test_chaos_sharded_cross_placement``) crosses placements and shard
+  counts (2 / 4 / 8 shards and local) and equals the JAX run's, driven in
+  a subprocess with 8 forced host devices on meshes with automatic axes
+  (``ROADMAP.md`` §3), step for step and event for event, every event's
+  ``to`` and ``invariant_shards`` included.
 """
 import dataclasses
 import json
@@ -31,6 +37,7 @@ from repro_torch.workloads import chaos as C
 jax.config.update("jax_platform_name", "cpu")
 
 SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+HERE = os.path.abspath(__file__)
 
 
 @pytest.mark.parametrize("seed", [0, 11, 12])
@@ -235,3 +242,100 @@ def test_chaos_run_matches_jax(monkeypatch):
     assert rep["depth"] == jrep["depth"]
     assert rep["depth"]["decreases"] > 0
     assert rep["policy"] == jrep["policy"]
+
+
+# --- the sharded run against the JAX package's (subprocess) ------------------
+
+def _sharded_setup(mod):
+    return mod.chaos_setup("chaos_reshard", placement="sharded", seed=5,
+                           scale=0.3)
+
+
+def _jax_sharded_main(out_path):
+    from jax.sharding import AxisType
+
+    def mesh_for(n):
+        # the JAX package's default_mesh_for over 8 devices, automatic axes
+        return jax.make_mesh((8 // n, n), ("data", "model"),
+                             axis_types=(AxisType.Auto,) * 2)
+
+    spec, trace, schedule = _sharded_setup(JC)
+    rep, log = _recorded_run(
+        JC, JaxTable, pytest.MonkeyPatch(),
+        dataclasses.replace(spec, backend="xla"), trace, schedule,
+        mesh=mesh_for(spec.n_shards), mesh_for=mesh_for,
+        raise_on_mismatch=False)
+    out = {"rep": rep,
+           "apply": [a.tolist() for a in log["apply"]],
+           "lookup": [(f.tolist(), v.tolist()) for f, v in log["lookup"]],
+           "digest": log["digest"]}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    print("jax side OK")
+    return 0
+
+
+def test_sharded_chaos_matches_jax(monkeypatch, tmp_path):
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
+    path = str(tmp_path / "jax.json")
+    proc = subprocess.Popen([sys.executable, HERE, "--jax-sharded", path],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    # the port's run overlaps the JAX subprocess's
+    spec, trace, schedule = _sharded_setup(C)
+    rep, log = _recorded_run(C, Table, monkeypatch, spec, trace, schedule,
+                             device="cpu", shard_counts=(2, 4, 8),
+                             raise_on_mismatch=False)
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, (out[-3000:], err[-3000:])
+    with open(path) as f:
+        jax_run = json.load(f)
+    jrep = jax_run["rep"]
+    assert rep["ok"] and jrep["ok"], (rep["mismatch_examples"],
+                                      jrep["mismatch_examples"])
+    assert [a.tolist() for a in log["apply"]] == jax_run["apply"]
+    assert len(log["apply"]) == rep["steps"]
+    assert ([[f.tolist(), v.tolist()] for f, v in log["lookup"]]
+            == jax_run["lookup"])
+    assert log["digest"] == jax_run["digest"]
+    fields = ("step", "kind", "arg", "skipped", "n_items", "digest_ok", "to",
+              "policy", "image_intact", "invariant_shards")
+    assert ([{k: r.get(k) for k in fields} for r in rep["events"]]
+            == [{k: r.get(k) for k in fields} for r in jrep["events"]])
+    for k in ("steps", "mutations", "reads", "event_counts", "error_flag",
+              "events_skipped", "placement", "depth", "policy"):
+        assert rep[k] == jrep[k], k
+    moves = [r for r in rep["events"] if "to" in r]
+    placements = {r["to"]["placement"] for r in moves}
+    assert placements == {"local", "sharded"}, moves
+    assert {r["invariant_shards"] for r in rep["events"]} >= {1, 2}
+    assert rep["events_skipped"] == 0
+
+
+def test_respec_candidates_match_jax():
+    """``_respec_candidates`` with shard counts 2 / 4 / 8 is the JAX list
+    (its 8-device mesh factory) element for element; without them a
+    sharded table keeps its shard count, as JAX does with no factory."""
+    keys = ("placement", "shard_bits", "dmax", "pool_size")
+    for placement in ("local", "sharded"):
+        spec, _, _ = C.chaos_setup("chaos_reshard", placement=placement,
+                                   seed=5, scale=0.3)
+        jspec, _, _ = JC.chaos_setup("chaos_reshard", placement=placement,
+                                     seed=5, scale=0.3)
+        for counts, mesh_for in (((2, 4, 8), lambda n: f"mesh{n}"),
+                                 (None, None)):
+            ours = [tuple(getattr(c, k) for k in keys)
+                    for c in C._respec_candidates(spec, counts)]
+            want = [tuple(getattr(c, k) for k in keys)
+                    for c, _ in JC._respec_candidates(jspec, None, mesh_for)]
+            assert ours == want, (placement, counts)
+            assert len(ours) == (8 if counts else
+                                 2 + 2 * (placement == "sharded"))
+    with pytest.raises(ValueError):
+        C._respec_candidates(spec, (3,))
+
+
+if __name__ == "__main__":
+    assert sys.argv[1] == "--jax-sharded", sys.argv
+    sys.exit(_jax_sharded_main(sys.argv[2]))

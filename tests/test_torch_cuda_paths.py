@@ -14,7 +14,11 @@ CPU: statuses, lookups and content equal, and every per-shard state array
 equal with pool rows compared as sets. The smoke paged-KV engine and every
 family's smoke ``decode_step`` run on the card against the CPU: logits at
 the dtype's tolerance, the engine's integers equal, and the engine's
-launches the fused kernels only. They skip where there is no card;
+launches the fused kernels only. The sharded serving tier (the
+closed loop across a sharded -> local handover, a chaos run across
+placements) runs on the card against its oracles and the CPU run, and
+every family's smoke ``train_step`` on the card against the CPU (loss,
+gradient norm, updated parameters). They skip where there is no card;
 the GPU machine has no JAX, so this file imports none:
 
     python -m pytest -q -m cuda tests/test_torch_cuda_paths.py
@@ -394,3 +398,48 @@ def test_decode_step_on_the_card_equals_the_cpu(cuda, dtype, tol):
     """``decode_step`` of every family's smoke config, 4 steps on the card
     against the CPU on the same weights and tokens."""
     _chip_smoke().family_decode_checks(1, cuda, [(dtype, tol)])
+
+
+@pytest.mark.cuda
+def test_sharded_serving_tier_on_the_card(cuda):
+    """The two runs of ``test_closed_loop_sharded`` on the card, and the
+    sharded ``chaos_reshard`` run across 2 / 4 / 8 shards and local on the
+    card and on the CPU: both ok, the same events (targets, item counts,
+    digests, shards checked) and counts."""
+    from repro_torch.serving.router import RouterConfig, default_cost_model
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.chaos import chaos_replay, chaos_setup
+
+    spec = TableSpec(dmax=8, bucket_size=8, pool_size=256, n_lanes=8,
+                     placement="sharded", shard_bits=1,
+                     resize_policy=ResizePolicy())
+    for seed, kw in ((9, {}), (10, dict(handover_at=0.5, handover_spec=(
+            TableSpec(dmax=9, bucket_size=8, pool_size=512, n_lanes=8,
+                      resize_policy=ResizePolicy()))))):
+        rep = serve_closed_loop(
+            spec, n_clients=4, ops_per_client=30, mix="churn", seed=seed,
+            device=cuda, cost_model=default_cost_model(8),
+            router_config=RouterConfig(max_batch=16, max_delay_s=1e-3), **kw)
+        assert rep["ok"] and rep["dropped"] == 0, rep["mismatch_examples"]
+    spec, trace, schedule = chaos_setup("chaos_reshard", placement="sharded",
+                                        seed=5, scale=0.3)
+    reps = [chaos_replay(spec, trace, schedule, device=d,
+                         shard_counts=(2, 4, 8)) for d in (cuda, "cpu")]
+    for rep in reps:
+        assert rep["ok"] and rep["events_skipped"] == 0
+    fields = ("step", "kind", "to", "n_items", "digest_ok",
+              "invariant_shards")
+    a, b = ([{k: r.get(k) for k in fields} for r in rep["events"]]
+            for rep in reps)
+    assert a == b
+    for k in ("mutations", "reads", "event_counts", "placement"):
+        assert reps[0][k] == reps[1][k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-3),
+                                        ("bfloat16", 2e-2)])
+def test_train_step_on_the_card_equals_the_cpu(cuda, dtype, tol):
+    """One ``train_step`` of every family's smoke config on the card
+    against the CPU from the same weights and batch."""
+    _chip_smoke().family_train_checks(1, cuda, [(dtype, tol)])

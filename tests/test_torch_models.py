@@ -207,8 +207,13 @@ def test_entry_points_run_on_cuda_unless_asked():
             M.init_cache(cfg, 1, 4)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             M.init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        M.forward(cfg, {}, {})
+    # the training forward is ported (tests/test_torch_arch.py): it runs
+    # where its parameters and tokens are
+    p = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    logits, aux = M.forward(cfg, p, {"tokens": torch.ones(1, 8,
+                                                           dtype=torch.int32)})
+    assert logits.shape == (1, 8, cfg.padded_vocab)
+    assert logits.device.type == "cpu" and float(aux) == 0.0
 
 
 # ---------------------------------------------------------------------------

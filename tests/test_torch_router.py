@@ -11,7 +11,23 @@ request's result, the grouping into dispatches, the queue waits and the
 counters are equal, across a handover in the middle. (Service times are
 measured wall time, so they, and a closed loop's interleaving, differ
 between the packages.)
+
+The sharded half: the JAX side runs once in a subprocess with 8 forced
+host devices on a mesh with automatic axes (the JAX sharded facade fails
+under ``jax.make_mesh``'s default explicit axes, ``ROADMAP.md`` §3). A
+2-shard router goes through ``_drive`` across a sharded -> local handover
+in both packages with equal dispatch groups, results, queue waits,
+per-shard shedding and counters; the JAX router's ``IndexError`` on a
+submit after a local -> sharded handover (it keeps the predecessor's one
+shard counter) is pinned beside the port's re-homed queues, whose results
+equal the oracle; and both ``serve_closed_loop`` runs of the JAX package's
+``test_closed_loop_sharded`` are ``ok`` in the port.
 """
+import json
+import os
+import subprocess
+import sys
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +37,7 @@ from repro.serving import router as JR
 from repro.table_api import Table as JaxTable
 from repro.table_api import TableSpec as JaxSpec
 from repro_torch.core.policy import ResizePolicy
+from repro_torch.core.reference import SeqExtHash
 from repro_torch.serving.router import (DEL, INS, READ, SHED_PRESSURE,
                                         SHED_QUEUE_FULL, CostModel,
                                         LatencyHistogram, Request, Router,
@@ -36,6 +53,9 @@ MINI = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
 # the specs of the JAX package's closed-loop tests
 LOOP = dict(dmax=8, bucket_size=8, pool_size=512, n_lanes=8)
 BIGGER = dict(dmax=9, bucket_size=8, pool_size=1024, n_lanes=8)
+# LOOP's 8 aggregate hash bits over 2 shards
+SHARDED = dict(LOOP, dmax=7, placement="sharded", shard_bits=1)
+HERE = os.path.abspath(__file__)
 
 
 # --- cost model -------------------------------------------------------------
@@ -234,14 +254,16 @@ COUNTERS = ("submitted", "admitted", "completed", "shed_queue_full",
             "mean_batch", "queue_wait")
 
 
-def _drive(router, handover_spec, seed=21):
+def _drive(router, handover_spec, seed=21, mesh=None):
     """A seeded request sequence with explicit times: 5 requests every
     0.4 ms (a burst of 30, past the queue bound, every 15th time), a pump
-    after each, a handover halfway (with requests queued),
-    then forced pumps until the queues drain. Returns the dispatch groups
-    as (rid, kind, key, status, found, result) tuples and the report."""
+    after each, a handover halfway (with requests queued; ``mesh`` is the
+    JAX router's successor mesh), then forced pumps until the queues
+    drain. Returns the dispatch groups as (rid, kind, key, status, found,
+    result) tuples, the report and the per-shard queue depths just before
+    and just after the handover."""
     rng = np.random.default_rng(seed)
-    groups = []
+    groups, depths = [], []
 
     def take(done):
         if done:
@@ -256,20 +278,28 @@ def _drive(router, handover_spec, seed=21):
             router.submit(kind, key, int(rng.integers(1, 1 << 20)), now=now)
         if tick == 30:
             assert len(router.queues) > 0
-            router.handover(handover_spec)
+            depths.append(router.queues.depths())
+            if mesh is None:
+                router.handover(handover_spec)
+            else:
+                router.handover(handover_spec, mesh)
+            depths.append(router.queues.depths())
         take(router.pump(now=now))
         now += 4e-4
     while len(router.queues):
         take(router.pump(now=now, force=True))
         now += 1e-3
-    return groups, router.report()
+    return groups, router.report(), depths
+
+
+# low pressure thresholds, so that the policy's pressure defers and sheds
+# writes in the short sequences of _drive
+DRIVE_CFG = dict(max_batch=16, max_queue_per_shard=24, max_delay_s=1e-3,
+                 pressure_defer=0.15, pressure_shed=0.25)
 
 
 def test_router_matches_jax():
-    # low pressure thresholds, so that the policy's pressure defers and
-    # sheds writes in this short sequence
-    cfg = dict(max_batch=16, max_queue_per_shard=24, max_delay_s=1e-3,
-               pressure_defer=0.15, pressure_shed=0.25)
+    cfg = DRIVE_CFG
     port = Router(Table.create(TableSpec(**LOOP,
                                          resize_policy=ResizePolicy()),
                                device="cpu"),
@@ -278,11 +308,12 @@ def test_router_matches_jax():
         JaxTable.create(JaxSpec(**LOOP, backend="xla",
                                 resize_policy=JaxPolicy())),
         JR.RouterConfig(**cfg), cost_model=JR.default_cost_model(8))
-    groups, rep = _drive(port, TableSpec(**BIGGER,
-                                         resize_policy=ResizePolicy()))
-    jgroups, jrep = _drive(jax_router, JaxSpec(**BIGGER, backend="xla",
-                                               resize_policy=JaxPolicy()))
+    groups, rep, depths = _drive(port, TableSpec(
+        **BIGGER, resize_policy=ResizePolicy()))
+    jgroups, jrep, jdepths = _drive(jax_router, JaxSpec(
+        **BIGGER, backend="xla", resize_policy=JaxPolicy()))
     assert groups == jgroups
+    assert depths == jdepths
     assert len(groups) > 10 and rep["handovers"] == 1
     assert rep["shed_queue_full"] > 0 and rep["shed_pressure"] > 0
     assert rep["deferred_rounds"] > 0
@@ -292,3 +323,158 @@ def test_router_matches_jax():
                                                  abs=1e-4)
     assert rep["cost_model"] == jrep["cost_model"]
     assert rep["config"] == jrep["config"]
+
+
+# --- the sharded half ---------------------------------------------------------
+
+def _jax_sharded_main(out_path):
+    """The JAX side of the sharded tests (8 forced host devices)."""
+    from jax.sharding import AxisType
+
+    mesh = jax.make_mesh((4, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    out = {}
+    r = JR.Router(JaxTable.create(JaxSpec(**SHARDED, backend="xla",
+                                          resize_policy=JaxPolicy()), mesh),
+                  JR.RouterConfig(**DRIVE_CFG),
+                  cost_model=JR.default_cost_model(8))
+    groups, rep, depths = _drive(r, JaxSpec(**BIGGER, backend="xla",
+                                            resize_policy=JaxPolicy()))
+    out["groups"], out["depths"] = groups, depths
+    out["report"] = {k: rep[k] for k in COUNTERS + ("peak_pressure",)}
+    # the fault: a local router handed over onto a sharded table keeps its
+    # one shard counter, and a submit homed on shard 1 indexes past it
+    r = JR.Router(JaxTable.create(JaxSpec(**LOOP, backend="xla")),
+                  JR.RouterConfig(max_queue_per_shard=64),
+                  cost_model=JR.default_cost_model(8))
+    for k in range(1, 9):
+        r.submit(INS, k, k, now=0.0)
+    r.handover(JaxSpec(**SHARDED, backend="xla"), mesh, warmup=False)
+    out["fault"] = None
+    for k in range(100, 200):
+        try:
+            r.submit(INS, k, k, now=0.0)
+        except IndexError as e:
+            out["fault"] = {"key": k, "error": repr(e),
+                            "depths": r.queues.depths()}
+            break
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    print("jax side OK")
+    return 0
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("jax_router") / "jax.json")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(
+                   HERE)), "src"))
+    proc = subprocess.run([sys.executable, HERE, "--jax-sharded", path],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    with open(path) as f:
+        return json.load(f)
+
+
+def test_sharded_router_matches_jax(jax_sharded):
+    """A 2-shard router across a sharded -> local handover: dispatch
+    groups, results, queue waits, per-shard shedding and counters equal the
+    JAX router's; before the handover both count two shards, after it the
+    port counts one (re-homed), the JAX router still two."""
+    port = Router(Table.create(TableSpec(**SHARDED,
+                                         resize_policy=ResizePolicy()),
+                               device="cpu"),
+                  RouterConfig(**DRIVE_CFG), cost_model=default_cost_model(8))
+    assert port.queues.n_shards == 2
+    groups, rep, depths = _drive(port, TableSpec(
+        **BIGGER, resize_policy=ResizePolicy()))
+    assert json.loads(json.dumps(groups)) == jax_sharded["groups"]
+    assert len(groups) > 10 and rep["handovers"] == 1
+    assert rep["shed_queue_full"] > 0 and rep["shed_pressure"] > 0
+    for k in COUNTERS:
+        assert rep[k] == jax_sharded["report"][k], k
+    assert rep["peak_pressure"] == pytest.approx(
+        jax_sharded["report"]["peak_pressure"], abs=1e-4)
+    before, after = depths
+    assert before == jax_sharded["depths"][0] and len(before) == 2
+    assert min(before) > 0                 # both shards had queued work
+    assert after == [sum(before)]
+    assert jax_sharded["depths"][1] == before
+
+
+def test_local_to_sharded_handover_rehomes_queues(jax_sharded):
+    """The JAX router raises ``IndexError`` on the first submit homed on
+    shard 1 after a local -> sharded handover; the port re-homes the queued
+    requests (each per-shard depth equals a recount by home shard), keeps
+    admitting, and every result equals the oracle in linearization
+    order."""
+    fault = jax_sharded["fault"]
+    assert fault is not None and "IndexError" in fault["error"]
+    assert fault["depths"] == [8]          # still the one local counter
+    succ = TableSpec(**SHARDED)
+    assert shard_of(fault["key"], succ) == 1
+    assert all(shard_of(k, succ) == 0 for k in range(100, fault["key"]))
+
+    r = Router(Table.create(TableSpec(**LOOP), device="cpu"),
+               RouterConfig(max_batch=16, max_queue_per_shard=64),
+               cost_model=default_cost_model(8))
+    rng = np.random.default_rng(4)
+    done = []
+
+    def submit(n, now):
+        for _ in range(n):
+            kind = int(rng.choice([READ, INS, INS, DEL]))
+            req, _ = r.submit(kind, int(rng.integers(1, 300)),
+                              int(rng.integers(1, 1 << 20)), now=now)
+            assert req is not None
+
+    submit(40, 0.0)
+    done += r.pump(now=0.0, force=True)
+    submit(30, 1e-3)
+    queued = [q for q in list(r.queues._reads) + list(r.queues._writes)]
+    r.handover(succ)
+    assert r.queues.n_shards == 2
+    want = [sum(shard_of(q.key, succ) == s for q in queued) for s in (0, 1)]
+    assert r.queues.depths() == want and min(want) > 0
+    assert all(q.shard == shard_of(q.key, succ) for q in queued)
+    submit(60, 2e-3)                       # shard-1 homes among them
+    done += r.flush(now=3e-3)
+    assert len(done) == 130 and r.metrics.dropped == 0
+    ref = SeqExtHash(dmax=8, bucket_size=8)
+    for q in done:
+        if q.kind == INS:
+            assert q.status == ref.insert(q.key, q.value), q
+        elif q.kind == DEL:
+            assert q.status == ref.delete(q.key), q
+        else:
+            found, val = ref.lookup(q.key)
+            assert (q.found, q.result) == (found, val if found else None), q
+
+
+@pytest.mark.parametrize("seed,handover", [(9, False), (10, True)])
+def test_closed_loop_sharded(seed, handover):
+    """The two runs of the JAX package's ``test_closed_loop_sharded`` on
+    the port: a 2-shard table, then the same handed over onto a local
+    successor at the same aggregate bits halfway."""
+    spec = TableSpec(dmax=8, bucket_size=8, pool_size=256, n_lanes=8,
+                     placement="sharded", shard_bits=1,
+                     resize_policy=ResizePolicy())
+    kw = dict(handover_at=0.5, handover_spec=TableSpec(
+        dmax=9, bucket_size=8, pool_size=512, n_lanes=8,
+        resize_policy=ResizePolicy())) if handover else {}
+    rep = serve_closed_loop(
+        spec, n_clients=4, ops_per_client=30, mix="churn", seed=seed,
+        device="cpu", cost_model=default_cost_model(spec.n_lanes),
+        router_config=RouterConfig(max_batch=16, max_delay_s=1e-3), **kw)
+    assert rep["ok"], rep["mismatch_examples"]
+    assert rep["completed"] == rep["admitted"] == 120
+    assert rep["handover_done"] == handover and rep["dropped"] == 0
+    assert len(rep["queue_depths"]) == (1 if handover else 2)
+
+
+if __name__ == "__main__":
+    assert sys.argv[1] == "--jax-sharded", sys.argv
+    sys.exit(_jax_sharded_main(sys.argv[2]))

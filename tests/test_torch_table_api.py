@@ -132,29 +132,24 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TableSpec(**GEOM, autotune="measured")
     # sharded placement is ported (tests/test_torch_dist.py): the spec
-    # resolves as the JAX spec does; the router, its closed-loop driver and
-    # the chaos harness refuse it until their sharded halves are ported
-    from repro_torch.serving.router import Router
-    from repro_torch.workloads import (chaos_replay, chaos_setup,
-                                       get_scenario, serve_closed_loop)
+    # resolves as the JAX spec does, and the router, its closed-loop driver
+    # and the chaos harness take it (tests/test_torch_router.py,
+    # tests/test_torch_chaos.py)
+    from repro_torch.serving.router import Router, default_cost_model
+    from repro_torch.workloads import chaos_setup
     sharded = TableSpec(**GEOM, placement="sharded", shard_bits=2)
     jsharded = JaxSpec(**GEOM, placement="sharded", shard_bits=2)
     assert sharded.n_shards == jsharded.n_shards == 4
     assert (dataclasses.asdict(sharded.table_config())
             == dataclasses.asdict(jsharded.table_config()))
     t = Table.create(sharded, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Router(t)
-    with pytest.raises(NotImplementedError):
-        serve_closed_loop(sharded, device="cpu")
-    with pytest.raises(NotImplementedError):
-        chaos_setup("chaos_churn", placement="sharded")
-    spec, trace = get_scenario("chaos_churn", placement="sharded")
-    with pytest.raises(NotImplementedError):
-        chaos_replay(spec, trace, (), device="cpu")
-    local = Table.create(TableSpec(**GEOM), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Router(local).handover(sharded)
+    cm = default_cost_model(GEOM["n_lanes"])
+    assert Router(t, cost_model=cm).queues.n_shards == 4
+    assert chaos_setup("chaos_churn",
+                       placement="sharded")[0].placement == "sharded"
+    r = Router(Table.create(TableSpec(**GEOM), device="cpu"), cost_model=cm)
+    r.handover(sharded, warmup=False)
+    assert r.queues.depths() == [0] * 4
     # a geometry outside the fused-apply kernel resolves, on a CUDA table,
     # to the unfused kernels (grouped_apply, probe); the CPU tables match
     # the JAX facade
