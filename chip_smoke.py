@@ -166,11 +166,29 @@ printing one JSON line:
     against the CPU (1e-3 in float32, 2e-2 in bf16). The line: losses, ms
     per step (CUDA events, steps after the first), tokens/s, peak memory
     and the FLOP bound (6 x parameters x tokens plus attention, over the
-    dense bf16 peak) for both models, checkpoint seconds and bytes.
+    dense bf16 peak) for both models, checkpoint seconds and bytes;
+17. the launch tier: ``make_compressed_allreduce``
+    (``repro_torch/distributed/compression.py``) on a one-rank NCCL group
+    from ``make_local_mesh`` over a full-width ``smollm-135m`` gradient
+    tree (134,515,008 elements drawn from the seed) for 3 steps carrying
+    the feedback, against the plain arithmetic (float32 quantization, the
+    rest in float64): reduced grads and residual within 1 float32 ulp, ms
+    per call (CUDA events) beside the byte bound; the dry-run's ``h100x1``
+    record (``repro_torch/launch/dryrun.py``) at phase 16's shape (8 x
+    2,048 tokens, train) against one real ``train_step`` on the card: the
+    traced FLOPs equal ``FlopCounterMode``'s over the real step, op by op,
+    and the argument bytes the real state's and batch's, the model FLOPs
+    beside phase 16's FLOP bound, the real step's peak memory beside the
+    argument bytes, the card's memory beside the dry-run's ``hbm_bytes``;
+    then every arch's ``decode_32k`` records on ``h100x1`` and
+    ``pod16x16`` and its ``train_4k`` layout on ``pod16x16`` (a fake
+    process group of 256 ranks) in a pool of spawned processes, each
+    ``ok``, timed (the one-card ``train_4k`` traces stay with the CLI's
+    ``--all`` sweep). No kernel is launched.
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
-kernel's launches on the sharded, the LLM, the sharded serving and the
-training path beside the main path's) and, last,
+kernel's launches on the sharded, the LLM, the sharded serving, the
+training path and the launch tier beside the main path's) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -3944,6 +3962,230 @@ def family_train_checks(seed, dev, tolerances=FAMILY_TOLERANCES):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch tier — the int8 compressed all-reduce on a one-rank
+# NCCL group, the dry-run's one-card record against a real train step, a
+# timed sweep of dry-run records
+
+
+def f32_ulps(got, want, mag):
+    """Largest |got - want| in float32 ulps at magnitude ``mag`` (float64
+    tensors; the ulp of a float32 in [2**e, 2**(e+1)) is 2**(e - 23))."""
+    _, e = torch.frexp(mag.abs().clamp(min=2.0**-126))
+    ulp = torch.ldexp(torch.ones_like(mag), e - 24)
+    return float(((got.double() - want).abs() / ulp).max())
+
+
+def compression_check(dev, seed):
+    """``make_compressed_allreduce`` over a one-rank ``make_local_mesh``
+    group (NCCL on the card) on the full-width gradient tree of
+    ``TRAIN_ARCH``, 3 steps carrying the feedback, each held against the
+    plain arithmetic (float32 quantization, the dequantization, mean and
+    residual in float64): reduced grads and residual within 1 float32 ulp.
+    Then ms per call (CUDA events), the bytes the call must move and their
+    bound."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as DC
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    spec = M.param_spec(cfg)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def draw():
+        return M._map_spec(lambda leaf, path: torch.randn(
+            leaf.shape, generator=gen, device=dev).mul_(1e-3).to(leaf.dtype),
+            spec)
+
+    mesh = make_local_mesh(device_type=dev.type)
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"compression group backend {backend}")
+        grads = draw()
+        leaves = tree_leaves(grads)
+        n = sum(g.numel() for g in leaves)
+        world = mesh.size()
+        check(n == n_params(cfg), f"{n} gradient elements")
+        fn = DC.make_compressed_allreduce(mesh, grads, axes=("data",))
+        fb = DC.init_feedback(grads)
+        worst = {"reduced_ulps": 0.0, "residual_ulps": 0.0}
+        for step in range(3):
+            if step:
+                grads = draw()
+            red, new_fb = fn(grads, fb)
+            for g, r, got, got_r in zip(*(tree_leaves(t) for t in (
+                    grads, fb.residual, red, new_fb.residual))):
+                x = g.float() + r
+                s = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+                qs = torch.clamp(torch.round(x / s), -127, 127).double() \
+                    * s.double()
+                want = qs / world
+                want_r = x.double() - qs
+                check(got.dtype == got_r.dtype == torch.float32,
+                      "compressed all-reduce dtypes")
+                worst["reduced_ulps"] = max(worst["reduced_ulps"],
+                                            f32_ulps(got, want, want))
+                worst["residual_ulps"] = max(
+                    worst["residual_ulps"],
+                    f32_ulps(got_r, want_r, torch.maximum(x.double().abs(),
+                                                          qs.abs())))
+            fb = new_fb
+            del red
+        check(max(worst.values()) <= 1.0, f"compression against the plain "
+              f"arithmetic: {worst} ulps")
+        ms = cuda_ms(lambda i: fn(grads, fb), 5) if dev.type == "cuda" \
+            else None
+        # read: the gradient and the residual; written: the reduced
+        # gradient and the new residual (float32)
+        n_bytes = sum(g.numel() * (g.element_size() + 12)
+                      for g in tree_leaves(grads))
+    finally:
+        dist.destroy_process_group()
+    b_ms, b_by = bound_ms(n_bytes, 0)
+    return dict(worst, arch=TRAIN_ARCH, elements=n, leaves=len(leaves),
+                steps=3, backend=backend, world=world, ms_per_call=ms,
+                bytes_moved=n_bytes, bound_ms=b_ms, bound_by=b_by,
+                bytes_per_s=n_bytes / ms * 1e3 if ms else None)
+
+
+def dryrun_train_check(dev, seed):
+    """The dry-run's ``h100x1`` record at phase 16's ``TRAIN_ARCH`` shape
+    against one real ``train_step`` on the card: FlopCounterMode's total
+    and per-op counts, and the argument bytes (state plus batch); the
+    record's model FLOPs beside phase 16's FLOP bound, the real step's peak
+    memory beside the argument bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.checkpoint import _flat
+    from repro_torch.training.data import SyntheticLM
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = Shape("train_phase16", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = DR.one_card_record(cfg, shape)
+    torch.cuda.empty_cache()
+    st = TS.init_train_state(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed).batch_at(0).items()}
+    real_bytes = sum(x.numel() * x.element_size()
+                     for tree in (st, batch) for x in _flat(tree).values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        st, metrics = TS.train_step(cfg, TS.TrainConfig(), st, batch)
+    loss = float(metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    real = counter.get_total_flops()
+    by_op = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    del st, batch, metrics
+    torch.cuda.empty_cache()
+    check(np.isfinite(loss), f"real step loss {loss}")
+    check(rec["traced_flops"] == real, f"traced FLOPs {rec['traced_flops']} "
+          f"against the real step's {real} ({by_op})")
+    check(rec["memory"]["argument_bytes_per_device"] == real_bytes,
+          f"argument bytes {rec['memory']['argument_bytes_per_device']} "
+          f"against the real state and batch's {real_bytes}")
+    step_flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    return {"arch": TRAIN_ARCH, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+            "traced_flops": rec["traced_flops"], "real_flops": real,
+            "flops_by_op": by_op, "trace_s": rec["trace_s"],
+            "analytic_flops": rec["analytic_flops_per_device"],
+            "model_flops": rec["model_flops"],
+            "model_flops_bound_ms": rec["model_flops"] / PEAK_BF16_FLOPS * 1e3,
+            "phase16_step_flops": step_flops,
+            "phase16_bound_ms": step_flops / PEAK_BF16_FLOPS * 1e3,
+            "argument_bytes": real_bytes, "real_step_peak_bytes": peak,
+            "hbm_bytes": rec["memory"]["hbm_bytes"],
+            "card_total_memory":
+                torch.cuda.get_device_properties(dev).total_memory,
+            "peak_over_argument_bytes": peak / real_bytes,
+            "real_step_loss": loss}
+
+
+# the dry-run sweep's cells: every arch's decode_32k records on one card and
+# on the production mesh, and its train_4k layout there. The one-card
+# train_4k traces (10 to 90 s each on the host, PERF.md) are left to the
+# CLI's --all sweep; phase 17(b) holds one such record against a real step.
+SWEEP_CELLS = (("decode_32k", "h100x1"), ("decode_32k", "pod16x16"),
+               ("train_4k", "pod16x16"))
+# worker processes: the host's cores less the main process's, at most 4
+SWEEP_WORKERS = max(1, min(4, (os.cpu_count() or 2) - 1))
+
+
+def _sweep_cell(cell):
+    """One dry-run cell in a sweep worker (a fake world of 256 ranks for
+    the production mesh, started once per worker)."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun as DR
+    arch, shape, mesh_name, out = cell
+    if DR.MESHES[mesh_name] is not None and not dist.is_initialized():
+        DR.fake_world(256)
+    with contextlib.redirect_stdout(io.StringIO()):
+        return DR.run_cell(arch, shape, mesh_name, out)
+
+
+def dryrun_sweep(during):
+    """The ``SWEEP_CELLS`` records of every arch (the full ``--all`` sweep
+    stays a CLI run) in a pool of spawned processes (meta tensors only: no
+    worker touches the card), while ``during()`` runs here. Each record
+    must be ``ok``. Returns (``during()``'s result, the records' seconds
+    and the sweep's wall time)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs import ARCHS
+
+    out = str(ROOT / "build" / "chip_smoke" / "dryrun")
+    cells = [(a, s, m, out) for s, m in SWEEP_CELLS for a in sorted(ARCHS)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(SWEEP_WORKERS,
+                             mp_context=mp.get_context("spawn")) as pool:
+        futures = [pool.submit(_sweep_cell, c) for c in cells]
+        side = during()
+        recs = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    bad = [r["cell"] for r in recs if r["status"] != "ok"]
+    check(not bad, f"dry-run cells not ok: {bad}")
+    cells_out = {r["cell"]: {
+        "seconds": r["seconds"],
+        "argument_bytes_per_device": r["memory"]["argument_bytes_per_device"],
+        "fits_80gb": r["memory"]["fits_80gb"],
+        "bottleneck": r["roofline"]["bottleneck"],
+        **({"traced_flops": r["traced_flops"],
+            "traced_vs_analytic": r["traced_vs_analytic"]}
+           if r["mesh"] == "h100x1" else
+           {"replicated_params": len(r["replicated_params"])})}
+        for r in recs}
+    return side, {"cells": cells_out, "n_cells": len(recs), "wall_s": wall,
+                  "workers": SWEEP_WORKERS,
+                  "cell_seconds_sum": sum(r["seconds"] for r in recs)}
+
+
+def launch_tier_path(dev, seed):
+    """Phase 17: the dry-run sweep in a process pool while this process
+    runs the compression check and the dry-run's one-card record against a
+    real step. Launches none of the table's kernels."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    (compression, train), sweep = dryrun_sweep(lambda: (
+        compression_check(dev, seed), dryrun_train_check(dev, seed)))
+    launches = read_counts()
+    check(not any(launches.values()), f"launch tier launches {launches}")
+    emit({"phase": "launch_tier", "gpu": smi_line(),
+          "compression": compression, "dryrun_train": train,
+          "dryrun_sweep": sweep, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3981,11 +4223,13 @@ def main() -> int:
     llm = llm_serving_path(args.seed, dev)
     sharded_serving = sharded_serving_path(rng, dev, args.seed)
     training = training_path(t, dev, args.seed)
+    launch_tier = launch_tier_path(dev, args.seed)
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_llm"] = llm[k["name"]]
         k["launches_sharded_serving"] = sharded_serving[k["name"]]
         k["launches_training"] = training[k["name"]]
+        k["launches_launch_tier"] = launch_tier[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,2 @@
+"""Assigned architecture config (see archs.py for the table)."""
+from repro_torch.configs.archs import GEMMA_7B as CONFIG  # noqa: F401

@@ -15,8 +15,11 @@ contract, as in the JAX launcher:
     --straggler-factor × the median of the last 20 are flagged.
 
 Each step prints one JSON line (``step``, ``loss``, ``lr``, ``grad_norm``,
-``s``), followed by `` STRAGGLER`` when flagged. A mesh (``--data`` or
-``--model`` above 1) needs the multi-card backend, which is not ported yet.
+``s``), followed by `` STRAGGLER`` when flagged. A resume restores into
+``abstract_train_state`` (meta tensors) on ``--device``, so it holds one
+train state; the random state is drawn only when there is nothing to
+resume. A mesh (``--data`` or ``--model`` above 1) needs the multi-card
+launcher, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ from repro_torch.core.table import resolve_device
 from repro_torch.training import checkpoint as C
 from repro_torch.training.data import Prefetcher, SyntheticLM
 from repro_torch.training.optimizer import OptConfig
-from repro_torch.training.train_step import (TrainConfig, init_train_state,
+from repro_torch.training.train_step import (TrainConfig,
+                                             abstract_train_state,
+                                             init_train_state,
                                              make_train_step)
 
 
@@ -60,8 +65,8 @@ def main(argv=None, tables=None):
 
     if args.data > 1 or args.model > 1:
         raise NotImplementedError(
-            "--data/--model above 1 need the multi-card backend "
-            "(ROADMAP.md §1 item 5.2), not ported yet")
+            "--data/--model above 1 need the multi-card launcher "
+            "(ROADMAP.md §1 item 3), not ported yet")
     dev = resolve_device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     tc = TrainConfig(opt=OptConfig(lr=args.lr, warmup_steps=10,
@@ -79,15 +84,18 @@ def main(argv=None, tables=None):
     source = SyntheticLM(cfg.vocab_size, args.seq_len, args.global_batch,
                          seed=0, extras=extras)
 
-    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    # a resume restores into the meta structure; only a fresh run draws
     start_step = 0
-    if args.ckpt_dir:
-        last = C.latest_step(args.ckpt_dir)
-        if last is not None:
-            state, extra = C.restore(args.ckpt_dir, last, state, dev)
-            start_step = extra.get("data_step", last)
-            print(f"resumed from step {last} (data offset {start_step})",
-                  flush=True)
+    last = C.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if last is not None:
+        state, extra = C.restore(args.ckpt_dir, last,
+                                 abstract_train_state(cfg), dev)
+        start_step = extra.get("data_step", last)
+        print(f"resumed from step {last} (data offset {start_step})",
+              flush=True)
+    else:
+        state = init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev)
 
     step_fn = make_train_step(cfg, tc)
     pf = Prefetcher(source, start_step=start_step, depth=2)

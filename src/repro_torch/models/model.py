@@ -13,14 +13,18 @@ from an explicit ``torch.Generator`` (its values differ from
 
 :func:`decode_step` writes the cache in place: the cache passed in is
 consumed, as JAX's donated buffers are. The layer stack is a Python loop
-over views of the stacked cache. The JAX package's sharding constraints
-(``_constrain_kv``, ``constrain``) are the identity on one device and have
-no counterpart here.
+over views of the stacked cache.
 
 :func:`forward` runs the layer stack as a Python loop over layer views of
 the stacked parameters, each layer under ``torch.utils.checkpoint`` when
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of the scan body).
-The mesh sharding (``models/sharding.py``) is not ported yet.
+
+The model runs on one device. The JAX model's sharding constraints
+(``_constrain_kv`` and ``constrain`` in its ``layers.py``, ``model.py`` and
+``moe.py``) are not called here: their counterpart,
+:func:`repro_torch.models.sharding.constrain`, is the identity without an
+ambient mesh, and its call sites come with the model on DTensors.
+:func:`abstract_params` is the meta-device tree the dry-run traces.
 """
 from __future__ import annotations
 
@@ -259,6 +263,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         return fill(leaf.shape, dtype=leaf.dtype, device=dev)
 
     return _map_spec(make, param_spec(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree as meta tensors: ``init_params``' keys, shapes and
+    dtypes, with nothing allocated and nothing drawn (the JAX package's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return _map_spec(lambda leaf, path: torch.empty(
+        leaf.shape, dtype=leaf.dtype, device="meta"), param_spec(cfg))
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:

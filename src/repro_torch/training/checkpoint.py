@@ -117,12 +117,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore(ckpt_dir: str, step: int, like: Any, device=None):
     """Restore step ``step`` into the structure of ``like`` (its leaves'
-    shapes and dtypes; meta tensors will do), on ``device`` (default: each
-    leaf's of ``like``). Returns (state, manifest extra)."""
+    shapes and dtypes), on ``device`` (default: each leaf's of ``like``).
+    ``like`` may hold meta tensors (``train_step.abstract_train_state``)
+    only when ``device`` is given: a meta leaf with no device raises
+    ``ValueError``, since its own device holds no data. Returns (state,
+    manifest extra)."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     want = _flat(like)
+    if device is None:
+        meta = [k for k, leaf in want.items() if leaf.is_meta]
+        if meta:
+            raise ValueError(
+                f"restore into meta tensors ({meta[:3]}) needs a device")
     if sorted(want) != manifest["keys"]:
         raise ValueError(
             f"checkpoint/tree mismatch at {path}: "

@@ -14,9 +14,9 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import (ModelConfig, _map_spec, forward,
-                                      init_params, param_spec,
-                                      params_from_numpy)
+from repro_torch.models.model import (ModelConfig, _map_spec,
+                                      abstract_params, forward, init_params,
+                                      param_spec, params_from_numpy)
 from repro_torch.training.optimizer import (OptConfig, OptState,
                                             adamw_update, init_opt_state,
                                             tree_leaves, tree_map)
@@ -41,6 +41,17 @@ def init_train_state(cfg: ModelConfig, gen: torch.Generator,
     (default ``"cuda"``) and a fresh optimizer state."""
     params = init_params(cfg, gen, device)
     return TrainState(params=params, opt=init_opt_state(params))
+
+
+def abstract_train_state(cfg: ModelConfig) -> TrainState:
+    """The train state as meta tensors — ``abstract_params`` and the
+    optimizer state mirroring them (fp32 master and moments, an int32
+    step) — with nothing allocated and nothing drawn: the JAX package's
+    ``jax.eval_shape(partial(init_train_state, cfg), key)``. A restore
+    target (``checkpoint.restore`` with a device) and the dry-run's
+    trace input."""
+    params = abstract_params(cfg)
+    return TrainState(params, init_opt_state(params))
 
 
 def train_state_from_numpy(state, cfg: ModelConfig, device=None

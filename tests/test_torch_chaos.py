@@ -17,7 +17,10 @@
   counts (2 / 4 / 8 shards and local) and equals the JAX run's, driven in
   a subprocess with 8 forced host devices on meshes with automatic axes
   (``ROADMAP.md`` §3), step for step and event for event, every event's
-  ``to`` and ``invariant_shards`` included.
+  ``to`` and ``invariant_shards`` included;
+* re-shards and a handover forced onto 4- and 8-shard targets and back to
+  local hold every digest and the invariants per shard against the
+  oracles.
 """
 import dataclasses
 import json
@@ -311,6 +314,38 @@ def test_sharded_chaos_matches_jax(monkeypatch, tmp_path):
     assert placements == {"local", "sharded"}, moves
     assert {r["invariant_shards"] for r in rep["events"]} >= {1, 2}
     assert rep["events_skipped"] == 0
+
+
+def test_chaos_moves_to_4_and_8_shards():
+    """Re-shards and a handover forced onto 4- and 8-shard targets (and
+    back to local) through ``_respec_candidates``' ``shard_counts``: every
+    event's content digest equals the streaming oracle's, the invariants
+    hold on every shard of the target, and every op's status and read
+    equals both oracles'."""
+    spec, trace, _ = C.chaos_setup("chaos_reshard", placement="sharded",
+                                   seed=5, scale=0.3)
+    counts = (4, 8)
+    cands = C._respec_candidates(spec, counts)
+    shards = [c.n_shards if c.placement == "sharded" else 1 for c in cands]
+    assert shards == [1, 1, 4, 4, 8, 8]
+    n = trace.total_steps
+    # (kind, candidate index): 4 shards, 8 shards by handover, local,
+    # 8 shards, 4 shards with the larger pool
+    moves = [("reshard", 2), ("handover", 4), ("reshard", 0),
+             ("reshard", 5), ("reshard", 3)]
+    schedule = tuple(C.ChaosEvent(n * (i + 1) // (len(moves) + 1), kind, arg)
+                     for i, (kind, arg) in enumerate(moves))
+    rep = C.chaos_replay(spec, trace, schedule, device="cpu",
+                         shard_counts=counts, oracle="both")
+    assert rep["ok"], rep["mismatch_examples"]
+    assert rep["events_skipped"] == 0 and not rep["error_flag"]
+    events = rep["events"]
+    assert [r["kind"] for r in events] == [k for k, _ in moves]
+    assert [r["invariant_shards"] for r in events] == [4, 8, 1, 8, 4]
+    assert [r["to"]["shard_bits"] if r["to"]["placement"] == "sharded"
+            else "local" for r in events] == [2, 3, "local", 3, 2]
+    assert all(r["digest_ok"] and not r["skipped"] for r in events)
+    assert rep["placement"] == "sharded"
 
 
 def test_respec_candidates_match_jax():

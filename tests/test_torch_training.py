@@ -13,12 +13,17 @@ port's in JAX, with the same leaf keys, the same manifest and equal
 leaves. Then the JAX package's own checks on the port: a crashed save
 leaves no partial step, restore-and-continue follows the same trajectory,
 the loss drops when one batch is overfit, the launcher resumes and replays
-the same losses, and ``lr_at``'s shape (its values equal JAX's).
+the same losses (restoring into the meta structure, with no random state
+drawn beside it), and ``lr_at``'s shape (its values equal JAX's). A
+restore into meta tensors needs a device; ``abstract_train_state`` has
+``init_train_state``'s (and the JAX ``jax.eval_shape``'s) keys, shapes and
+dtypes for every smoke arch, as meta tensors.
 """
 import dataclasses
 import json
 import os
 import shutil
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +38,7 @@ from repro.training import checkpoint as JC
 from repro.training import data as JD
 from repro.training import optimizer as JO
 from repro.training import train_step as JT
-from repro_torch.configs import smoke_config
+from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.launch import train as launch
 from repro_torch.table_api import Table, TableSpec
 from repro_torch.training import checkpoint as C
@@ -258,10 +263,12 @@ def _run(capsys, *args):
                    if ln.startswith("{")]
 
 
-def test_launcher_resumes_and_replays(tmp_path, capsys):
+def test_launcher_resumes_and_replays(tmp_path, capsys, monkeypatch):
     """The launcher's JSON lines, its checkpoints every --ckpt-every steps,
     and auto-resume: a fresh run on a copy of the checkpoint directory that
-    holds only step 3 replays steps 4-6 with the same losses."""
+    holds only step 3 replays steps 4-6 with the same losses, restoring
+    into the meta structure (``abstract_train_state``) without drawing a
+    random state beside it."""
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     _, full = _run(capsys, "--steps", "6", "--ckpt-dir", a,
                    "--ckpt-every", "3")
@@ -271,6 +278,17 @@ def test_launcher_resumes_and_replays(tmp_path, capsys):
     assert sorted(os.listdir(a)) == ["step_3", "step_6"]
     os.makedirs(b)
     shutil.copytree(os.path.join(a, "step_3"), os.path.join(b, "step_3"))
+    drawn, targets = [], []
+    restore = C.restore
+
+    def spy_restore(ckpt_dir, step, like, device=None):
+        targets.append(([leaf.is_meta for leaf in C._flat(like).values()],
+                        device))
+        return restore(ckpt_dir, step, like, device)
+
+    monkeypatch.setattr(launch, "init_train_state",
+                        lambda *a, **k: drawn.append(a))
+    monkeypatch.setattr(C, "restore", spy_restore)
     lines, resumed = _run(capsys, "--steps", "6", "--ckpt-dir", b,
                           "--ckpt-every", "3")
     assert lines[0] == "resumed from step 3 (data offset 3)"
@@ -278,11 +296,62 @@ def test_launcher_resumes_and_replays(tmp_path, capsys):
     for x, y in zip(full[3:], resumed):
         assert (x["loss"], x["lr"], x["grad_norm"]) == (
             y["loss"], y["lr"], y["grad_norm"])
+    assert drawn == []
+    assert len(targets) == 1 and all(targets[0][0])
+    assert torch.device(targets[0][1]) == torch.device("cpu")
+
+
+def test_restore_into_meta_needs_a_device(tmp_path):
+    """A meta ``like`` restores only onto a named device: with none,
+    ``restore`` raises instead of returning meta tensors (which would drop
+    the checkpoint's data)."""
+    st = T.init_train_state(smoke_config(ARCH),
+                            torch.Generator().manual_seed(4), "cpu")
+    ck = str(tmp_path / "ck")
+    C.save(ck, 2, st, extra={"data_step": 2})
+    meta_copy = C._rebuild(st, {k: torch.empty_like(v, device="meta")
+                                for k, v in C._flat(st).items()})
+    with pytest.raises(ValueError, match="meta"):
+        C.restore(ck, 2, meta_copy)
+    like = T.abstract_train_state(smoke_config(ARCH))
+    with pytest.raises(ValueError, match="meta"):
+        C.restore(ck, 2, like)
+    got, extra = C.restore(ck, 2, like, "cpu")
+    assert extra == {"data_step": 2}
+    want = C._flat(st)
+    for k, leaf in C._flat(got).items():
+        assert leaf.device.type == "cpu" and leaf.dtype == want[k].dtype, k
+        assert torch.equal(leaf, want[k]), k
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_abstract_train_state_matches_init(arch):
+    """``abstract_train_state`` has ``init_train_state``'s keys, shapes and
+    dtypes (and the JAX ``jax.eval_shape`` of its ``init_train_state``'s),
+    every leaf a meta tensor: nothing allocated, nothing drawn."""
+    cfg = smoke_config(arch)
+    gen = torch.Generator().manual_seed(0)
+    before = gen.get_state()
+    abstract = C._flat(T.abstract_train_state(cfg))
+    assert torch.equal(gen.get_state(), before)
+    assert all(leaf.is_meta for leaf in abstract.values())
+    real = C._flat(T.init_train_state(cfg, gen, "cpu"))
+    assert sorted(abstract) == sorted(real)
+    for k, leaf in real.items():
+        assert (tuple(abstract[k].shape), abstract[k].dtype) == (
+            tuple(leaf.shape), leaf.dtype), k
+    jst = jax.eval_shape(partial(JT.init_train_state, jax_smoke_config(arch)),
+                         jax.random.key(0))
+    jflat = JC._flat(jst)
+    assert sorted(jflat) == sorted(abstract)
+    for k, s in jflat.items():
+        assert tuple(s.shape) == tuple(abstract[k].shape), k
+        assert str(s.dtype) == str(abstract[k].dtype).replace("torch.", ""), k
 
 
 def test_launcher_refuses_a_mesh():
     for flag in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="5.2"):
+        with pytest.raises(NotImplementedError, match="multi-card"):
             launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                          flag, "2"])
 
