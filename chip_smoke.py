@@ -180,15 +180,25 @@ printing one JSON line:
     and the argument bytes the real state's and batch's, the model FLOPs
     beside phase 16's FLOP bound, the real step's peak memory beside the
     argument bytes, the card's memory beside the dry-run's ``hbm_bytes``;
-    then every arch's ``decode_32k`` records on ``h100x1`` and
-    ``pod16x16`` and its ``train_4k`` layout on ``pod16x16`` (a fake
-    process group of 256 ranks) in a pool of spawned processes, each
-    ``ok``, timed (the one-card ``train_4k`` traces stay with the CLI's
-    ``--all`` sweep). No kernel is launched.
+    then every arch's ``decode_32k`` record on ``h100x1`` in a pool of
+    spawned processes, each ``ok``, timed (the one-card ``train_4k`` traces
+    and every production-mesh record, a DTensor program traced on the
+    host, stay with the CLI's ``--all`` sweep and the CPU tests). No
+    kernel is launched;
+18. the mesh train step: the one-rank NCCL group of phase 17 as a
+    ``("data", "model") = (1, 1)`` mesh; phase 16's full-width
+    ``smollm-135m`` state (the launcher's seed) laid out on it as DTensors
+    (``shard_train_state``) and 4 ``train_step``s on phase 16's batches
+    under the mesh, the constraints live: each step's loss and gradient
+    norm within 1e-3 relative of phase 16's one-device step; the state
+    saved from the mesh and restored onto one device, equal leaf for leaf;
+    ms per step (CUDA events) beside phase 16's, peak memory, no kernel
+    launched.
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
 kernel's launches on the sharded, the LLM, the sharded serving, the
-training path and the launch tier beside the main path's) and, last,
+training path, the launch tier and the mesh train step beside the main
+path's) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -3741,6 +3751,7 @@ class TrainRun:
         from repro_torch.training import checkpoint as C
 
         self.events, self.ckpt = [], {"save_s": [], "restore_s": []}
+        self.metrics = []
         make_step, save, restore = launch.make_train_step, C.save, C.restore
 
         def timed_step(cfg, tc):
@@ -3752,6 +3763,7 @@ class TrainRun:
                 out = step(state, batch)
                 e[1].record()
                 self.events.append(e)
+                self.metrics.append(out[1])
                 return out
             return run
 
@@ -3792,6 +3804,8 @@ class TrainRun:
         flops = train_flops(cfg, batch, seq)
         return {"losses": [r["loss"] for r in self.steps],
                 "grad_norms": [r["grad_norm"] for r in self.steps],
+                "exact": [{k: float(m[k]) for k in ("loss", "grad_norm")}
+                          for m in self.metrics],
                 "step_ms": self.step_ms, "ms_per_step": ms,
                 "tokens_per_s": batch * seq / ms * 1e3,
                 "max_memory_allocated": self.max_memory,
@@ -4043,8 +4057,10 @@ def compression_check(dev, seed):
         # gradient and the new residual (float32)
         n_bytes = sum(g.numel() * (g.element_size() + 12)
                       for g in tree_leaves(grads))
-    finally:
+    except BaseException:
         dist.destroy_process_group()
+        raise
+    # the one-rank group stays up: phase 18's mesh runs on it
     b_ms, b_by = bound_ms(n_bytes, 0)
     return dict(worst, arch=TRAIN_ARCH, elements=n, leaves=len(leaves),
                 steps=3, backend=backend, world=world, ms_per_call=ms,
@@ -4109,26 +4125,22 @@ def dryrun_train_check(dev, seed):
             "real_step_loss": loss}
 
 
-# the dry-run sweep's cells: every arch's decode_32k records on one card and
-# on the production mesh, and its train_4k layout there. The one-card
-# train_4k traces (10 to 90 s each on the host, PERF.md) are left to the
-# CLI's --all sweep; phase 17(b) holds one such record against a real step.
-SWEEP_CELLS = (("decode_32k", "h100x1"), ("decode_32k", "pod16x16"),
-               ("train_4k", "pod16x16"))
+# the dry-run sweep's cells: every arch's decode_32k record on one card.
+# The one-card train_4k traces (10 to 90 s each on the host, PERF.md) and
+# the production-mesh records (a DTensor program traced on the host) are
+# left to the CLI's --all sweep and the CPU tests; phase 17(b) holds one
+# one-card record against a real step.
+SWEEP_CELLS = (("decode_32k", "h100x1"),)
 # worker processes: the host's cores less the main process's, at most 4
 SWEEP_WORKERS = max(1, min(4, (os.cpu_count() or 2) - 1))
 
 
 def _sweep_cell(cell):
-    """One dry-run cell in a sweep worker (a fake world of 256 ranks for
-    the production mesh, started once per worker)."""
+    """One dry-run cell in a sweep worker."""
     import contextlib
     import io
-    import torch.distributed as dist
     from repro_torch.launch import dryrun as DR
     arch, shape, mesh_name, out = cell
-    if DR.MESHES[mesh_name] is not None and not dist.is_initialized():
-        DR.fake_world(256)
     with contextlib.redirect_stdout(io.StringIO()):
         return DR.run_cell(arch, shape, mesh_name, out)
 
@@ -4159,10 +4171,8 @@ def dryrun_sweep(during):
         "argument_bytes_per_device": r["memory"]["argument_bytes_per_device"],
         "fits_80gb": r["memory"]["fits_80gb"],
         "bottleneck": r["roofline"]["bottleneck"],
-        **({"traced_flops": r["traced_flops"],
-            "traced_vs_analytic": r["traced_vs_analytic"]}
-           if r["mesh"] == "h100x1" else
-           {"replicated_params": len(r["replicated_params"])})}
+        "traced_flops": r["traced_flops"],
+        "traced_vs_analytic": r["traced_vs_analytic"]}
         for r in recs}
     return side, {"cells": cells_out, "n_cells": len(recs), "wall_s": wall,
                   "workers": SWEEP_WORKERS,
@@ -4184,6 +4194,126 @@ def launch_tier_path(dev, seed):
           "dryrun_sweep": sweep, "launches": launches,
           "seconds": time.perf_counter() - t_phase, "ok": True})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the mesh train step — phase 16's state on DTensors over the
+# one-rank group of phase 17
+
+
+MESH_TRAIN_STEPS = 4
+
+
+def mesh_train_path(dev, seed, single):
+    """Phase 16's full-width ``TRAIN_ARCH`` state (the launcher's seed 0)
+    laid out on a (1, 1) mesh over phase 17's one-rank NCCL group, 4
+    ``train_step``s on phase 16's batches under the mesh: loss and gradient
+    norm against ``single`` (phase 16's line, its exact per-step metrics)
+    within 1e-3 relative; the DTensor state saved and restored onto one
+    device, equal leaf for leaf; ms per step beside phase 16's."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.sharding import gather_tree, set_mesh
+    from repro_torch.training import checkpoint as C
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import OptConfig
+
+    t_phase = time.perf_counter()
+    try:
+        check(dist.is_initialized() and dist.get_world_size() == 1
+              and dist.get_backend() == ("nccl" if dev.type == "cuda"
+                                         else "gloo"),
+              "phase 17's one-rank group is not up")
+        mesh = make_local_mesh(device_type=dev.type)
+        cfg = get_config(TRAIN_ARCH)
+        # the launcher's optimizer and data (launch/train.py)
+        tc = TS.TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=10,
+                                          total_steps=TRAIN_STEPS))
+        src = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = TS.shard_train_state(TS.init_train_state(
+            cfg, torch.Generator(dev).manual_seed(0), dev), mesh)
+        zero_counts()
+        events, metrics = [], []
+        for step in range(MESH_TRAIN_STEPS):
+            batch = TS.shard_batch({k: torch.from_numpy(v).to(dev) for k, v
+                                    in src.batch_at(step).items()}, mesh)
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            with set_mesh(mesh):
+                state, m = TS.train_step(cfg, tc, state, batch)
+            e[1].record()
+            events.append(e)
+            metrics.append(m)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        got = [{k: float(m[k]) for k in ("loss", "grad_norm")}
+               for m in metrics]
+        want = single["exact"][:MESH_TRAIN_STEPS]
+        rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                  for k in g)
+        check(all(np.isfinite(g["loss"]) for g in got) and rel <= 1e-3,
+              f"mesh steps {got} against phase 16's {want}")
+        step_ms = [a.elapsed_time(b) for a, b in events]
+
+        ck = ROOT / "build" / "chip_smoke" / "ckpt_mesh"
+        shutil.rmtree(ck, ignore_errors=True)
+        t0 = time.perf_counter()
+        C.save(str(ck), MESH_TRAIN_STEPS, state)
+        save_s = time.perf_counter() - t0
+        full = C._flat(gather_tree(state))
+        del state
+        t0 = time.perf_counter()
+        back, _ = C.restore(str(ck), MESH_TRAIN_STEPS,
+                            TS.abstract_train_state(cfg), dev)
+        restore_s = time.perf_counter() - t0
+        back = C._flat(back)
+        differ = sorted(k for k in full if not torch.equal(full[k], back[k]))
+        check(not differ and sorted(full) == sorted(back),
+              f"restored leaves differ from the mesh state: {differ[:4]}")
+        check(not any(launches.values()), f"mesh train launches {launches}")
+        shutil.rmtree(ck, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    ms = float(np.mean(step_ms[1:]))
+    single_ms = single["ms_per_step"]
+    emit({"phase": "mesh_train", "gpu": smi_line(), "arch": TRAIN_ARCH,
+          "mesh": {"data": 1, "model": 1}, "backend": "nccl"
+          if dev.type == "cuda" else "gloo", "seq": TRAIN_SEQ,
+          "batch": TRAIN_BATCH, "steps": MESH_TRAIN_STEPS,
+          "losses": [g["loss"] for g in got],
+          "grad_norms": [g["grad_norm"] for g in got],
+          "phase16_losses": [w["loss"] for w in want],
+          "phase16_grad_norms": [w["grad_norm"] for w in want],
+          "max_rel_diff": rel, "step_ms": step_ms, "ms_per_step": ms,
+          "phase16_ms_per_step": single_ms,
+          "dtensor_overhead_share": (ms - single_ms) / ms,
+          "max_memory_allocated": peak,
+          "phase16_max_memory_allocated": single["max_memory_allocated"],
+          "restore": {"leaves": len(full), "equal": True, "save_s": save_s,
+                      "restore_s": restore_s},
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return launches
+
+
+def mesh_train_alone(seed: int = 0):
+    """Phase 18 by itself: phase 16's smollm run through the launcher (no
+    checkpoints, no table) for its per-step metrics, a one-rank NCCL group
+    as phase 17 leaves it, then ``mesh_train_path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    dev = torch.device("cuda", 0)
+    run = TrainRun(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                    "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                    str(TRAIN_BATCH), "--device", str(dev)])
+    make_local_mesh(device_type=dev.type)
+    return mesh_train_path(dev, seed, run.summary(get_config(TRAIN_ARCH),
+                                                  TRAIN_BATCH, TRAIN_SEQ))
 
 
 def main() -> int:
@@ -4224,12 +4354,15 @@ def main() -> int:
     sharded_serving = sharded_serving_path(rng, dev, args.seed)
     training = training_path(t, dev, args.seed)
     launch_tier = launch_tier_path(dev, args.seed)
+    mesh_train = mesh_train_path(dev, args.seed,
+                                 LINES["training_path"]["smollm"])
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_llm"] = llm[k["name"]]
         k["launches_sharded_serving"] = sharded_serving[k["name"]]
         k["launches_training"] = training[k["name"]]
         k["launches_launch_tier"] = launch_tier[k["name"]]
+        k["launches_mesh_train"] = mesh_train[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,21 +1,35 @@
-"""Self-check of the sharded table, through the ``Table`` facade.
+"""Self-check of the sharded table, through the ``Table`` facade, and of
+the int8 compressed gradient all-reduce.
 
     python -m repro_torch.core.dist_check [--device cpu|cuda]
 
-The port of the table half of ``repro/core/dist_check.py``. For 2 and 4
-shards, a random batched workload runs through a sharded ``Table``; every
-status must equal, lane for lane, (a) a local ``Table`` over the same
-aggregate hash bits and (b) the paper-literal sequential reference
+The port of ``repro/core/dist_check.py``. For 2 and 4 shards, a random
+batched workload runs through a sharded ``Table``; every status must
+equal, lane for lane, (a) a local ``Table`` over the same aggregate hash
+bits and (b) the paper-literal sequential reference
 (``core/reference.py::SeqExtHash``); every lookup must agree with both,
 the invariants must hold per shard, and the final content (the union of
-the shards' maps) must equal both. Exit code 0 = pass.
+the shards' maps) must equal both.
+
+Then :func:`check_compression`, the JAX check's counterpart on
+``distributed/compression.py``: every rank's gradient is the same seeded
+[64, 32] float32 base scaled by its rank + 1, reduced twice over the
+whole mesh carrying the error feedback. The one-step mean must be within
+5% of the largest exact value, and the two-step mean with feedback no
+further off than the one step. ``--device cpu`` runs it on 4 gloo ranks (a
+(2, 2) mesh, spawned processes joined through a ``FileStore`` in a
+temporary directory: no TCP port); ``--device cuda`` on one NCCL rank.
+Exit code 0 = pass.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 
 import numpy as np
+import torch
 
 from repro_torch.core import table as T
 from repro_torch.core.invariants import check_invariants, to_dict
@@ -75,15 +89,89 @@ def check_shards(shard_bits: int, device: str, seed: int = 0) -> int:
     return len(got)
 
 
+COMPRESSION_RANKS_CPU = 4
+
+
+def _compression_rank(rank, store_path, world, device_type):
+    """One rank of :func:`check_compression` (rank 0 checks and prints)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import (
+        init_feedback, make_compressed_allreduce)
+    from repro_torch.launch.mesh import make_local_mesh
+
+    if world > 1:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                             world),
+                                rank=rank, world_size=world)
+    data = 2 if world == 4 else world
+    mesh = make_local_mesh(data=data, model=world // data,
+                           device_type=device_type)
+    try:
+        dev = torch.device(device_type, torch.cuda.current_device()) \
+            if device_type == "cuda" else torch.device("cpu")
+        base = torch.tensor(np.random.default_rng(3).standard_normal(
+            (64, 32)), dtype=torch.float32, device=dev)
+        g = {"w": base * (dist.get_rank() + 1.0)}
+        fn = make_compressed_allreduce(mesh, g, axes=("data", "model"))
+        red, fb = fn(g, init_feedback(g))
+        red2, fb = fn(g, fb)
+        if rank == 0:
+            world = mesh.size()
+            exact = base.double().cpu().numpy() * (
+                sum(range(1, world + 1)) / world)
+            err1 = np.abs(red["w"].double().cpu().numpy() - exact).max()
+            # the two-step mean with feedback is closer than one
+            # uncorrected step
+            two = (red["w"] + red2["w"]).double().cpu().numpy() / 2
+            err2 = np.abs(two - exact).max()
+            scale = np.abs(exact).max()
+            assert err1 < 0.05 * scale, err1
+            assert err2 <= err1 + 1e-6, (err1, err2)
+            print(f"compression OK: one-step err {err1:.4f}, two-step "
+                  f"feedback err {err2:.4f} (scale {scale:.2f})", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_compression(device_type: str) -> None:
+    """The compression check on 4 spawned gloo ranks (``"cpu"``) or one
+    NCCL rank (``"cuda"``); raises when a rank fails."""
+    if device_type != "cpu":
+        _compression_rank(0, None, 1, device_type)
+        return
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.core.dist_check",
+             "--compression-rank", str(r), store], env=env)
+            for r in range(COMPRESSION_RANKS_CPU)]
+        codes = [p.wait(timeout=600) for p in procs]
+    if any(codes):
+        raise RuntimeError(f"compression check ranks exited {codes}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
+    ap.add_argument("--compression-rank", nargs=2, default=None,
+                    metavar=("RANK", "STORE"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.compression_rank:
+        rank, store = args.compression_rank
+        _compression_rank(int(rank), store, COMPRESSION_RANKS_CPU, "cpu")
+        return 0
     for shard_bits in (1, 2):
         n = check_shards(shard_bits, args.device)
         print(f"dist table OK: {n} items across {1 << shard_bits} shards, "
-              f"{STEPS} transactions, statuses lane-exact")
+              f"{STEPS} transactions, statuses lane-exact", flush=True)
+    device = args.device or "cuda"
+    check_compression(torch.device(device).type)
     return 0
 
 

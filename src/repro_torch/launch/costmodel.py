@@ -4,11 +4,124 @@
 are the JAX dry-run's.
 
 ``analytic_costs`` gives first-principles FLOPs and HBM bytes for each
-(arch, shape, mesh) from the model structure. The JAX module's HLO
-collective parse (``collective_bytes_scaled``) has no counterpart: the
-port's dry-run traces no mesh program yet.
+(arch, shape, mesh) from the model structure.
+
+:class:`MeshTrace` is the counterpart of the JAX module's HLO collective
+parse (``collective_bytes_scaled``): a dispatch mode under which a step
+runs on DTensors and that sees what one rank runs — every local op (its
+FLOPs, from ``torch.utils.flop_counter``'s formulas on the local shapes)
+and every ``_c10d_functional`` collective (its result bytes, by kind, as
+the JAX parser counts them, by mesh axis and by link). The port runs
+eagerly, so every collective is seen as often as it runs: there is no loop
+trip to scale by.
 """
 from __future__ import annotations
+
+from collections import defaultdict
+
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import flop_registry
+
+# the JAX parser's kinds, keyed by ``_c10d_functional`` op name
+COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+}
+
+# link rates of one H100 SXM, one direction: NVLink 4 (900 GB/s both
+# directions, NVIDIA H100 data sheet) inside a node of 8; across nodes the
+# card's own NIC (one ConnectX-7 at 400 Gb/s a GPU, NVIDIA DGX H100 data
+# sheet)
+NVLINK_BYTES_S = 450e9
+NIC_BYTES_S = 50e9
+GPUS_PER_NODE = 8
+LINK_SOURCE = ("NVLink 4 of one H100 SXM, 450 GB/s a direction, inside a "
+               "node of 8 (NVIDIA H100 data sheet); across nodes one "
+               "400 Gb/s ConnectX-7 NIC a GPU, 50 GB/s (NVIDIA DGX H100 "
+               "data sheet). A collective whose group stays in one node "
+               "runs at the NVLink rate, any other at the NIC rate.")
+
+
+class MeshTrace(TorchDispatchMode):
+    """What this rank runs while a step runs on DTensors over ``mesh``.
+
+    An op on DTensors is handed back (``NotImplemented``) so that DTensor
+    runs it: its local ops and collectives then come through this mode on
+    plain tensors, where they are counted (DTensor's sharding propagation
+    also runs ops, on fake tensors at the global shapes: those are not
+    counted). ``flops``: the local ops'
+    FLOPs; ``bytes_by_kind``: the collectives' result bytes by kind;
+    ``bytes_by_axis``: {mesh axis: {kind: bytes}}; ``bytes_by_link``:
+    NVLink or NIC (see ``LINK_SOURCE``); ``collective_s``: the seconds the
+    collectives take at those rates; ``calls``: collectives by kind."""
+
+    def __init__(self, mesh):
+        super().__init__()
+        self.flops = 0
+        self.bytes_by_kind = defaultdict(int)
+        self.bytes_by_axis = defaultdict(lambda: defaultdict(int))
+        self.bytes_by_link = defaultdict(int)
+        self.calls = defaultdict(int)
+        self.collective_s = 0.0
+        self._groups = {}
+        for i, name in enumerate(mesh.mesh_dim_names):
+            g = mesh.get_group(i)
+            ranks = dist.get_process_group_ranks(g)
+            nodes = {r // GPUS_PER_NODE for r in ranks}
+            self._groups[g.group_name] = (name, "nvlink" if len(nodes) == 1
+                                          else "nic")
+
+    def _collective(self, kind, args, out):
+        n = sum(t.numel() * t.element_size() for t in tree_leaves(out)
+                if isinstance(t, torch.Tensor))
+        name = next((a for a in args if isinstance(a, str)
+                     and a in self._groups), None)
+        axis, link = self._groups.get(name, ("other", "nic"))
+        self.bytes_by_kind[kind] += n
+        self.bytes_by_axis[axis][kind] += n
+        self.bytes_by_link[link] += n
+        self.calls[kind] += 1
+        self.collective_s += n / (NVLINK_BYTES_S if link == "nvlink"
+                                  else NIC_BYTES_S)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if any(issubclass(t, FakeTensor) for t in types):
+            return out          # DTensor's shape propagation, at global shapes
+        if func.namespace == "_c10d_functional":
+            kind = COLLECTIVE_KINDS.get(func._opname)
+            if kind is not None:
+                self._collective(kind, args, out)
+        elif func._overloadpacket in flop_registry:
+            self.flops += flop_registry[func._overloadpacket](
+                *args, **kwargs, out_val=out)
+        return out
+
+    def summary(self) -> dict:
+        kinds = dict(self.bytes_by_kind)
+        return {"collective_bytes_per_device": dict(
+                    kinds, total=sum(kinds.values())),
+                "collective_bytes_by_axis": {a: dict(k) for a, k in
+                                             self.bytes_by_axis.items()},
+                "collective_bytes_by_link": dict(self.bytes_by_link),
+                "collective_calls": dict(self.calls),
+                "collective_s": self.collective_s,
+                "traced_flops_per_device": float(self.flops)}
 
 
 def analytic_costs(cfg, shape, n_chips: int, model_axis: int, batch_axes: int,

@@ -15,16 +15,20 @@ writes one JSON record per cell into ``--out``:
 * ``pod16x16`` / ``pod2x16x16`` (the production meshes of
   ``launch/mesh.py``, built over a fake process group of 256 / 512 ranks
   in this one process, the counterpart of the JAX dry-run's 512 forced host
-  devices): the layout from ``launch/shardings.py`` over the same meta
-  trees, the per-device argument bytes summed from the local shard shapes
-  (the JAX record's ``argument_size_in_bytes``), ``analytic_costs`` per
-  device, ``model_flops`` and the roofline's ``compute_s``/``memory_s``.
-  The mesh program is not traced (the model does not run on DTensors
-  yet), so ``collective_bytes_per_device`` and ``collective_s`` are null
-  with that reason.
+  devices): the same meta trees laid out by ``launch/shardings.py`` as
+  DTensors (rank 0's shards), and the step itself traced on them under the
+  mesh, its constraints live, inside ``costmodel.MeshTrace``. The record
+  holds the per-device argument bytes (the JAX record's
+  ``argument_size_in_bytes``), the collectives rank 0 issues by kind (the
+  JAX record's ``collective_bytes_per_device``, result bytes), by mesh
+  axis and by link, ``collective_s`` at the link rates the record states
+  (``collective_link``), ``traced_flops_per_device`` (rank 0's local ops),
+  ``trace_s``, ``analytic_costs`` per device and ``model_flops``.
 
 Roofline denominators are one H100's (SXM, dense bf16, 700 W): 989e12
-FLOP/s and 3.35e12 B/s. A failing cell is recorded and the sweep goes on;
+FLOP/s and 3.35e12 B/s; the collectives' are ``costmodel.LINK_SOURCE``'s.
+The bottleneck is the largest of ``compute_s``, ``memory_s`` and
+``collective_s``. A failing cell is recorded and the sweep goes on;
 the exit code is 1 if any cell failed. The ``paged`` variant's decode runs
 the WF-Ext table transaction, which reads the device and has no meta plan:
 its decode cells are recorded as failed with that cause.
@@ -33,6 +37,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b \\
       --shape train_4k [--multi-pod] [--out artifacts]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both-meshes
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m \
+      --shape train_4k --meshes pod16x16,pod2x16x16
 """
 from __future__ import annotations
 
@@ -51,10 +57,14 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.archs import ARCHS, get_config
 from repro_torch.configs.shapes import SHAPES, Shape, cell_supported, input_specs
-from repro_torch.launch.costmodel import analytic_costs, param_count
+from repro_torch.launch.costmodel import (GPUS_PER_NODE, LINK_SOURCE,
+                                          NIC_BYTES_S, NVLINK_BYTES_S,
+                                          MeshTrace, analytic_costs,
+                                          param_count)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shardings import (batch_shardings, mesh_sizes,
                                           placements, state_shardings)
+from repro_torch.models import sharding as MS
 from repro_torch.models.model import (ModelConfig, abstract_params,
                                       decode_step, forward)
 from repro_torch.training.checkpoint import _flat
@@ -75,8 +85,9 @@ HBM_SOURCE = "total_memory of one NVIDIA H100 80GB HBM3"
 # mesh name → production mesh (None: one card, traced)
 MESHES = {"h100x1": None, "pod16x16": False, "pod2x16x16": True}
 
-NO_COLLECTIVES = ("the mesh program is not traced: the model does not run "
-                  "on DTensors yet (ROADMAP.md §1)")
+COLLECTIVE_LINK = {"nvlink_bytes_per_s": NVLINK_BYTES_S,
+                   "nic_bytes_per_s": NIC_BYTES_S,
+                   "gpus_per_node": GPUS_PER_NODE, "source": LINK_SOURCE}
 PAGED_CAUSE = ("the paged variant's decode runs the WF-Ext table "
                "transaction, which reads the device (its ST_FULL read) and "
                "has no meta plan")
@@ -183,10 +194,12 @@ def local_bytes(mesh, tree, specs) -> int:
     return total
 
 
-def roofline(ana) -> dict:
+def roofline(ana, collective_s=None) -> dict:
     r = {"compute_s": ana["flops_per_device"] / PEAK_FLOPS,
          "memory_s": ana["bytes_per_device"] / HBM_BW}
-    return dict(r, collective_s=None, bottleneck=max(r, key=r.get))
+    if collective_s is not None:
+        r["collective_s"] = collective_s
+    return dict(r, collective_s=collective_s, bottleneck=max(r, key=r.get))
 
 
 def one_card_record(cfg: ModelConfig, shape: Shape, variant: str = ""):
@@ -217,10 +230,12 @@ def one_card_record(cfg: ModelConfig, shape: Shape, variant: str = ""):
 
 
 def mesh_record(cfg: ModelConfig, shape: Shape, mesh, variant: str = ""):
-    """A production mesh's record: the layout of the step's meta arguments
-    and the analytic costs per device."""
+    """A production mesh's record: the step's meta arguments laid out on
+    the mesh as DTensors and the step traced on them (``MeshTrace``): the
+    per-device argument bytes, collectives and FLOPs, and the analytic
+    costs per device."""
     cfg, shard_opts = variant_config(cfg, variant)
-    _, args = step_inputs(cfg, shape, variant)
+    fn, args = step_inputs(cfg, shape, variant)
     sizes = mesh_sizes(mesh)
     n_chips = mesh.size()
     model_axis = sizes.get("model", 1)
@@ -238,23 +253,32 @@ def mesh_record(cfg: ModelConfig, shape: Shape, mesh, variant: str = ""):
     p_specs = _flat(state_shardings(mesh, params, **shard_opts))
     replicated = sorted(k for k, leaf in _flat(params).items()
                         if not any(p_specs[k]))
+    placed = [MS.distribute_leaf(a, mesh, s) if isinstance(a, torch.Tensor)
+              else MS.distribute_tree(a, s, mesh)
+              for a, s in zip(args, arg_specs)]
+    t0 = time.perf_counter()
+    with MS.set_mesh(mesh), MeshTrace(mesh) as trace:
+        fn(*placed)
+    trace_s = time.perf_counter() - t0
+    traced = trace.summary()
     ana = analytic_costs(cfg, shape, n_chips, model_axis,
                          n_chips // model_axis,
                          attn_dshard=shard_opts.get("attn_dshard", False))
     mf = model_flops_per_step(cfg, shape)
     return {"n_chips": n_chips, "mesh_shape": sizes,
-            "params": param_count(cfg),
+            "params": param_count(cfg), "trace_s": trace_s,
             "memory": {"argument_bytes_per_device": per_device,
                        "hbm_bytes": HBM_BYTES, "hbm_source": HBM_SOURCE,
                        "fits_80gb": per_device <= HBM_BYTES},
             "replicated_params": replicated,
             "analytic_flops_per_device": ana["flops_per_device"],
             "analytic_bytes_per_device": ana["bytes_per_device"],
-            "roofline": roofline(ana),
-            "collective_bytes_per_device": None,
-            "collective_reason": NO_COLLECTIVES,
+            **traced, "collective_link": COLLECTIVE_LINK,
+            "roofline": roofline(ana, traced["collective_s"]),
             "model_flops": mf,
-            "model_vs_analytic": mf / (ana["flops_per_device"] * n_chips)}
+            "model_vs_analytic": mf / (ana["flops_per_device"] * n_chips),
+            "traced_vs_analytic": traced["traced_flops_per_device"]
+            / ana["flops_per_device"]}
 
 
 def fake_world(size: int) -> bool:
@@ -270,7 +294,24 @@ def fake_world(size: int) -> bool:
     from torch.testing._internal.distributed.fake_pg import FakeStore
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=size)
+    _forget_meshes()
     return True
+
+
+def _forget_meshes():
+    """Drop DTensor's cached sharding decisions: they hold the meshes of an
+    earlier world (equal to this world's by shape and names, but with its
+    destroyed process groups)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._redistribute import _gen_transform_infos
+    prop = DTensor._op_dispatcher.sharding_propagator
+    prop.propagate_op_sharding.cache_clear()
+    prop._propagate_tensor_meta_cached.cache_clear()
+    _gen_transform_infos.cache_clear()
+    clear = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                    None)
+    if clear is not None:
+        clear()
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
@@ -300,9 +341,12 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
             rec = mesh_record(cfg, shape, mesh, variant)
         record.update(status="ok", seconds=time.perf_counter() - t0, **rec)
         r = rec["roofline"]
+        coll = ("" if r["collective_s"] is None
+                else f"collective={r['collective_s']:.3e}s ")
         print(f"[ok]   {cell_id}  compute={r['compute_s']:.3e}s "
-              f"memory={r['memory_s']:.3e}s  dom={r['bottleneck']}  "
-              f"args={rec['memory']['argument_bytes_per_device']}")
+              f"memory={r['memory_s']:.3e}s {coll} dom={r['bottleneck']}  "
+              f"args={rec['memory']['argument_bytes_per_device']}  "
+              f"trace={rec['trace_s']:.1f}s")
     except Exception as e:  # noqa: BLE001 — record the failure, keep going
         record.update(status="failed", error=f"{type(e).__name__}: {e}",
                       traceback=traceback.format_exc()[-4000:])
@@ -325,12 +369,21 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="", choices=[""] + sorted(VARIANTS))
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--meshes", default=None,
+                    help="comma-separated mesh names (default: h100x1 and "
+                    "the pod meshes the other flags choose)")
     ap.add_argument("--out", default="artifacts")
     args = ap.parse_args(argv)
 
     pods = (["pod16x16", "pod2x16x16"] if args.both_meshes
             else ["pod2x16x16"] if args.multi_pod else ["pod16x16"])
     meshes = ["h100x1"] + pods
+    if args.meshes:
+        meshes = args.meshes.split(",")
+        unknown = sorted(set(meshes) - set(MESHES))
+        if unknown:
+            ap.error(f"unknown meshes {unknown}; known {sorted(MESHES)}")
+        pods = [m for m in meshes if MESHES[m] is not None]
     if args.all:
         todo = [(arch, shape) for arch in ARCHS for shape in SHAPES]
     elif args.arch and args.shape:
@@ -338,7 +391,8 @@ def main(argv=None) -> int:
     else:
         ap.error("give --arch and --shape, or --all")
 
-    started = fake_world(512 if "pod2x16x16" in pods else 256)
+    started = fake_world(512 if "pod2x16x16" in pods else 256) if pods \
+        else False
     n_fail = 0
     try:
         for arch, shape in todo:

@@ -8,18 +8,37 @@ logits and softmax.
 JAX's ``preferred_element_type=float32`` on a bf16 product is written as
 the product of the fp32 upcasts: bf16 × bf16 is exact in fp32, so both sum
 the same exact terms in fp32.
+
+On DTensors (an ambient mesh, ``models/sharding.py``) the blocks carry the
+JAX model's constraints at its sites: q/k/v/o heads on ``model``, the
+cross attention's q, the MLP hidden on ``model``. The attention core runs
+under ``local_map`` on each rank's heads and batch rows.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding as MS
+
 NEG_INF = -1e30
 
 
 def rms_norm(x, weight, eps=1e-6):
     """``x * rsqrt(mean(x²) + eps) * (1 + weight)`` in fp32, cast back to
-    ``x``'s dtype."""
+    ``x``'s dtype. On DTensors it runs on each rank's rows (the normalized
+    dim whole); the weight's gradient is a partial sum over the axes that
+    split the rows."""
+    if MS.is_distributed(x, weight):
+        px = MS.rows_of(x)
+        pw = [MS.Replicate()] * len(px)
+        return MS.local_call(lambda x, w: _rms_norm(x, w, eps), px, (px, pw),
+                             x, weight,
+                             grad_placements=(px, MS.partial_where_split(px)))
+    return _rms_norm(x, weight, eps)
+
+
+def _rms_norm(x, weight, eps):
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
@@ -27,7 +46,19 @@ def rms_norm(x, weight, eps=1e-6):
 
 
 def rope(x, positions, theta=10000.0):
-    """x: [..., S, H, D]; positions: [..., S]. Angles in fp32."""
+    """x: [..., S, H, D]; positions: [..., S]. Angles in fp32. On DTensors
+    it runs on each rank's rows and heads (positions laid out as x's
+    leading dims)."""
+    if MS.is_distributed(x, positions):
+        px = MS.rows_of(x)
+        pp = [q if q.is_shard() and q.dim < positions.dim() else
+              MS.Replicate() for q in px]
+        return MS.local_call(lambda x, p: _rope(x, p, theta), px, (px, pp),
+                             x, positions, grad_placements=(px, pp))
+    return _rope(x, positions, theta)
+
+
+def _rope(x, positions, theta):
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -137,11 +168,53 @@ def attention_block(p, x, positions, *, n_heads, n_kv_heads, head_dim,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    q = MS.constrain(q, "batch", None, "model", None)
+    k = MS.constrain(k, "batch", None, "model", None)
+    v = MS.constrain(v, "batch", None, "model", None)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window, chunk=chunk,
-                        differentiable=differentiable)
+    o = over_heads(lambda q, k, v: flash_attention(
+        q, k, v, causal=causal, window=window, chunk=chunk,
+        differentiable=differentiable), q, k, v)
+    o = MS.constrain(o, "batch", None, "model", None)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def over_heads(core, q, k, v, *rows):
+    """``core(q, k, v, *rows)`` — attention of q [B,S,H,D] over k/v
+    [B,T,KV,D], ``rows`` batch-leading extras such as masks — on each
+    rank's batch rows and heads when the inputs are DTensors: q's heads as
+    ``constrain(q, "batch", None, "model", None)`` places them, k/v's
+    likewise (a cache split over its sequence comes back whole). When the
+    model axis splits the query heads but not the KV heads (smollm's 3, a
+    smoke config's 2 over 4), each rank takes the KV heads its own query
+    heads read (GQA: head h reads KV head h // (H / KV)), and their
+    gradients are partial sums over the model axis. The output is laid
+    out as q."""
+    pq = MS.where(q.shape, "batch", None, "model", None)
+    if pq is None or not MS.is_distributed(q, k, v):
+        return core(q, k, v, *rows)
+    pk = MS.where(k.shape, "batch", None, "model", None)
+    H, KV = q.shape[2], k.shape[2]
+    q_split = any(p == MS.Shard(2) for p in pq)
+    kv_split = any(p == MS.Shard(2) for p in pk)
+    grad_kv = pk
+    if q_split and not kv_split:
+        grad_kv = [MS.Partial() if p == MS.Shard(2) else k_p
+                   for p, k_p in zip(pq, pk)]
+    prow = [MS.where(r.shape, "batch", *(None,) * (r.dim() - 1))
+            for r in rows]
+
+    def local(q, k, v, *rows):
+        if q_split and not kv_split:
+            h = q.shape[2]
+            idx = (MS.mesh_coordinate("model") * h
+                   + torch.arange(h, device=q.device)) // (H // KV)
+            k, v = k[:, :, idx], v[:, :, idx]
+        return core(q, k, v, *rows)
+
+    return MS.local_call(local, pq, (pq, pk, pk, *prow), q, k, v, *rows,
+                         grad_placements=(pq, grad_kv, grad_kv, *prow))
 
 
 def _attend_cached(q, k, v, valid, bf16_partials):
@@ -170,19 +243,22 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0,
     positions; 0 is global. ``bf16_partials`` rounds the output sum to
     bf16, as the JAX package's bf16 partial sums do."""
     Smax = k_cache.shape[1]
-    idx = torch.arange(Smax, device=q.device)[None, :]
+    idx = MS.place(torch.arange(Smax, device=q.device)[None, :], length,
+                   None, None)
     valid = idx < length[:, None]
     if window > 0:
         valid = valid & (idx >= (length[:, None] - window).clamp(min=0))
-    return _attend_cached(q, k_cache, v_cache, valid, bf16_partials)
+    return over_heads(lambda q, k, v, valid: _attend_cached(
+        q, k, v, valid, bf16_partials), q, k_cache, v_cache, valid)
 
 
 def decode_attention_sliced(q, k_win, v_win, kpos, length, *,
                             bf16_partials=False):
     """Decode attention over a window already sliced from the cache:
     k_win/v_win [B,W,KV,D] at absolute positions ``kpos`` [B,W]."""
-    return _attend_cached(q, k_win, v_win, kpos < length[:, None],
-                          bf16_partials)
+    return over_heads(lambda q, k, v, valid: _attend_cached(
+        q, k, v, valid, bf16_partials), q, k_win, v_win,
+        kpos < length[:, None])
 
 
 def cross_attention_block(p, x, memory, *, n_heads, n_kv_heads, head_dim,
@@ -191,6 +267,14 @@ def cross_attention_block(p, x, memory, *, n_heads, n_kv_heads, head_dim,
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    q = MS.constrain(q, "batch", None, "model", None)
+    o = over_heads(_cross_core, q, k, v)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def _cross_core(q, k, v):
+    """Unmasked attention of q [B,S,H,D] over k/v [B,T,KV,D], fp32 logits
+    and softmax."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -199,13 +283,36 @@ def cross_attention_block(p, x, memory, *, n_heads, n_kv_heads, head_dim,
                           k.float()) * D ** -0.5
     pr = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", pr.to(v.dtype), v)
-    o = o.reshape(B, S, H, D)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return o.reshape(B, S, H, D)
 
 
 def gated_mlp(p, x, *, activation="silu"):
-    """SwiGLU (llama) / GeGLU (gemma, the tanh approximation of GELU)."""
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+    """SwiGLU (llama) / GeGLU (gemma, the tanh approximation of GELU).
+
+    On DTensors the block runs under ``local_map`` as a column- then
+    row-parallel pair (Megatron's MLP): each rank takes its batch rows and
+    its block of the hidden dim (the JAX constraint on the hidden,
+    ``("batch", None, "model")``), and the output is a partial sum over
+    ``model`` that the residual's constraint reduces."""
+    if not MS.is_distributed(x, p["w_gate"]):
+        return _gated_mlp(p["w_gate"], p["w_up"], p["w_down"], x, activation)
+    px = MS.where(x.shape, "batch", None, None)
+    pw, pd = p["w_gate"].placements, p["w_down"].placements
+    out = [MS.Partial() if q == MS.Shard(0) else r for q, r in zip(pd, px)]
+    grad_x = out
+
+    def grad_w(pl):
+        # each rank's weight gradient covers its own batch rows
+        return [MS.Partial() if r.is_shard() else q for q, r in zip(pl, px)]
+
+    return MS.local_call(
+        lambda wg, wu, wd, x: _gated_mlp(wg, wu, wd, x, activation), out,
+        (pw, pw, pd, px), p["w_gate"], p["w_up"], p["w_down"], x,
+        grad_placements=(grad_w(pw), grad_w(pw), grad_w(pd), grad_x))
+
+
+def _gated_mlp(w_gate, w_up, w_down, x, activation):
+    g = torch.einsum("bsd,df->bsf", x, w_gate)
     g = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
-    h = g * torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    h = g * torch.einsum("bsd,df->bsf", x, w_up)
+    return torch.einsum("bsf,fd->bsd", h, w_down)

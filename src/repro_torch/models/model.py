@@ -19,11 +19,14 @@ over views of the stacked cache.
 the stacked parameters, each layer under ``torch.utils.checkpoint`` when
 ``cfg.remat`` (the JAX package's ``jax.checkpoint`` of the scan body).
 
-The model runs on one device. The JAX model's sharding constraints
-(``_constrain_kv`` and ``constrain`` in its ``layers.py``, ``model.py`` and
-``moe.py``) are not called here: their counterpart,
-:func:`repro_torch.models.sharding.constrain`, is the identity without an
-ambient mesh, and its call sites come with the model on DTensors.
+On DTensors (parameters and inputs laid out by ``launch/shardings.py``
+under an ambient mesh, ``models/sharding.py``) the model carries the JAX
+model's sharding constraints at its sites (``constrain`` here and in
+``layers.py``, ``ssm.py``, ``moe.py``): the residual on the batch after
+the embedding and every layer, the logits' vocab on ``model``, the decode
+caches' layout after every write. The tensors the model builds at their
+global shape (positions, masks) are put on the mesh beside the activations
+they meet (``sharding.place``); nothing is replicated implicitly.
 :func:`abstract_params` is the meta-device tree the dry-run traces.
 """
 from __future__ import annotations
@@ -38,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.table import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import sharding as MS
 from repro_torch.models import ssm as S
 
 
@@ -336,20 +340,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
 def _store_kv(cfg, lc, k, v, pos):
     """Write the new position into one layer's cache views, in place; int8
     mode quantizes with per-(pos, head) absmax scales."""
-    ar = torch.arange(k.shape[0], device=k.device)
-    pos = pos.long()
     if cfg.kv_quant == "int8":
         ks = k[:, 0].abs().amax(-1).clamp(min=1e-6) / 127.0      # [B,KV]
         vs = v[:, 0].abs().amax(-1).clamp(min=1e-6) / 127.0
         kq = torch.round(k[:, 0] / ks[..., None]).clamp(-127, 127)
         vq = torch.round(v[:, 0] / vs[..., None]).clamp(-127, 127)
-        lc["k"][ar, pos] = kq.to(torch.int8)
-        lc["v"][ar, pos] = vq.to(torch.int8)
-        lc["k_scale"][ar, pos] = ks.float()
-        lc["v_scale"][ar, pos] = vs.float()
+        write_rows([lc["k"], lc["v"], lc["k_scale"], lc["v_scale"]],
+                   [kq.to(torch.int8), vq.to(torch.int8), ks.float(),
+                    vs.float()], pos)
     else:
-        lc["k"][ar, pos] = k[:, 0]
-        lc["v"][ar, pos] = v[:, 0]
+        write_rows([lc["k"], lc["v"]], [k[:, 0], v[:, 0]], pos)
+
+
+def write_rows(caches, rows, pos):
+    """``cache[b, pos[b]] = row[b]`` for each cache [B, S, ...] and its
+    rows [B, ...], in place. On DTensors each rank writes into its own
+    shards under ``local_map``: the rows of its batch block, at the
+    positions its sequence block holds (the cache keeps its layout; the
+    rows and positions are laid out to match it)."""
+    dist = MS.is_distributed(caches[0])
+    seq_split = dist and MS.Shard(1) in caches[0].placements
+
+    def local(pos, *tensors):
+        n = len(tensors) // 2
+        cs, rs = tensors[:n], tensors[n:]
+        S_loc = cs[0].shape[1]
+        p = pos.long() - (MS.mesh_coordinate("model") * S_loc
+                          if seq_split else 0)
+        mine = (p >= 0) & (p < S_loc)
+        p = p.clamp(0, S_loc - 1)
+        ar = torch.arange(cs[0].shape[0], device=p.device)
+        for c, r in zip(cs, rs):
+            keep = mine.reshape((-1,) + (1,) * (r.dim() - 1))
+            c[ar, p] = torch.where(keep, r.to(c.dtype), c[ar, p])
+
+    if not dist:
+        return local(pos, *caches, *rows)
+    pl = caches[0].placements
+    row_pl = [p if p == MS.Shard(0) else MS.Shard(p.dim - 1)
+              if p.is_shard() and p.dim > 1 else MS.Replicate()
+              for p in pl]
+    pos_pl = [p if p == MS.Shard(0) else MS.Replicate() for p in pl]
+    MS.local_call(local, (None,), [pos_pl] + [c.placements for c in caches]
+                  + [row_pl] * len(rows), pos, *caches, *rows)
 
 
 def _dequant_kv(cfg, k, v, ks=None, vs=None):
@@ -361,9 +394,34 @@ def _dequant_kv(cfg, k, v, ks=None, vs=None):
 
 
 def _window_slice(c, start, W):
-    """Rows ``start[b] .. start[b] + W`` of each batch row of ``c``."""
-    idx = start.long()[:, None] + torch.arange(W, device=c.device)[None, :]
-    return c[torch.arange(c.shape[0], device=c.device)[:, None], idx]
+    """Rows ``start[b] .. start[b] + W`` of each batch row of ``c``; on
+    DTensors each rank reads its batch block with the rest of the cache
+    gathered."""
+    def take(c, start):
+        idx = start.long()[:, None] + torch.arange(W, device=c.device)[None, :]
+        return c[torch.arange(c.shape[0], device=c.device)[:, None], idx]
+
+    pb = [p if p == MS.Shard(0) else MS.Replicate() for p in c.placements] \
+        if MS.is_distributed(c) else None
+    return MS.local_call(take, pb, (pb, pb), c, start)
+
+
+def _constrain_kv(cfg, lc):
+    """A layer's cache views under the JAX model's cache constraint: KV
+    heads on ``model`` when they divide it, else the sequence (hymba's 5,
+    smollm's 3). The views are returned laid out so; a write went into
+    the cache itself before."""
+    lc = dict(lc)
+    if cfg.n_kv_heads % max(MS.axis_size("model"), 1) == 0:
+        spec = ("batch", None, "model", None)
+    else:
+        spec = ("batch", "model", None, None)
+    lc["k"] = MS.constrain(lc["k"], *spec)
+    lc["v"] = MS.constrain(lc["v"], *spec)
+    if cfg.kv_quant == "int8":
+        lc["k_scale"] = MS.constrain(lc["k_scale"], *spec[:3])
+        lc["v_scale"] = MS.constrain(lc["v_scale"], *spec[:3])
+    return lc
 
 
 def _decode_layer(cfg: ModelConfig, lp, lc, x, pos, positions, memory,
@@ -375,6 +433,7 @@ def _decode_layer(cfg: ModelConfig, lp, lc, x, pos, positions, memory,
     if cfg.has_attn():
         q, k, v = project_qkv(cfg, lp, x, positions)
         _store_kv(cfg, lc, k, v, pos)
+        lc = _constrain_kv(cfg, lc)
         length = pos + 1
         if attn_mode == "win_slice":
             Smax = lc["k"].shape[1]
@@ -386,7 +445,8 @@ def _decode_layer(cfg: ModelConfig, lp, lc, x, pos, positions, memory,
                 k_w, v_w = _dequant_kv(cfg, k_w, v_w,
                                        _window_slice(lc["k_scale"], start, W),
                                        _window_slice(lc["v_scale"], start, W))
-            kpos = start[:, None] + torch.arange(W, device=x.device)[None, :]
+            kpos = start[:, None] + MS.place(
+                torch.arange(W, device=x.device)[None, :], start, None, None)
             o = L.decode_attention_sliced(
                 q, k_w, v_w, kpos, length,
                 bf16_partials=cfg.decode_bf16_partials)
@@ -406,8 +466,11 @@ def _decode_layer(cfg: ModelConfig, lp, lc, x, pos, positions, memory,
             headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
             conv_width=cfg.ssm_conv)
         outs.append(y)
-        lc["ssm_state"].copy_(s_c)
-        lc["conv_state"].copy_(cv_c)
+        # the carried state's layout (the JAX model pins its heads on
+        # ``model`` only when 16 divides them)
+        spec_h = "model" if cfg.ssm_heads % 16 == 0 else None
+        lc["ssm_state"].copy_(MS.constrain(s_c, "batch", spec_h, None, None))
+        lc["conv_state"].copy_(MS.constrain(cv_c, "batch", None, "model"))
     if cfg.layer_kind == "hybrid":
         x = x + 0.5 * outs[0] + 0.5 * outs[1]
     else:
@@ -467,11 +530,38 @@ def is_global_layer(cfg: ModelConfig, i: int) -> bool:
         cfg.global_every - 1
 
 
+def embed_lookup(table, tokens, dt):
+    """``table.to(dt)[tokens]``. On DTensors with the vocab split over
+    ``model`` (the embedding's layout) each rank looks up the tokens in its
+    own vocab block, zero elsewhere, under ``local_map``; the partial sum
+    over the model axis completes the lookup (the residual's constraint
+    reduces it). The table's gradient is a partial sum over the batch
+    axes."""
+    if not MS.is_distributed(table, tokens):
+        return table.to(dt)[tokens.long()]
+    pt = MS.where(tokens.shape, "batch", *(None,) * (tokens.dim() - 1))
+    pe = [MS.Replicate() if q.is_partial() else q for q in table.placements]
+    split = MS.Shard(0) in pe
+    out = [MS.Partial() if e == MS.Shard(0) else t for e, t in zip(pe, pt)]
+    grad = [e if e == MS.Shard(0) else MS.Partial() if t.is_shard()
+            else MS.Replicate() for e, t in zip(pe, pt)]
+
+    def local(table, tokens):
+        V = table.shape[0]
+        t = tokens.long() - (MS.mesh_coordinate("model") * V if split else 0)
+        hit = (t >= 0) & (t < V)
+        rows = table.to(dt)[t.clamp(0, V - 1)]
+        return torch.where(hit[..., None], rows, 0)
+
+    return MS.local_call(local, out, (pe, pt), table, tokens,
+                         grad_placements=(grad, pt))
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
     """tokens [B] → x [B,1,D]: the embedding rows scaled by sqrt(d_model)
     rounded to the model dtype first, as the JAX package does."""
     dt = cfg.torch_dtype
-    x = params["embed"].to(dt)[tokens.long()][:, None]
+    x = embed_lookup(params["embed"], tokens, dt)[:, None]
     # a device fill, not a host-to-device copy (which would synchronize)
     return x * torch.full((), cfg.d_model ** 0.5, dtype=dt, device=x.device)
 
@@ -552,7 +642,8 @@ def _layer_fwd(cfg: ModelConfig, lp, x, positions, memory, window,
                                         n_heads=cfg.n_heads,
                                         n_kv_heads=cfg.n_kv_heads,
                                         head_dim=cfg.head_dim)
-    return mlp_block(cfg, lp, x)
+    x, aux = mlp_block(cfg, lp, x)
+    return MS.constrain(x, "batch", None, None), aux
 
 
 def _run_stack(cfg: ModelConfig, stack, x, positions, memory, n_layers,
@@ -585,7 +676,9 @@ def encode(cfg: ModelConfig, params, enc_inputs):
     x = enc_inputs.to(cfg.torch_dtype)
     if "frame_proj" in params:
         x = torch.einsum("bsd,de->bse", x, params["frame_proj"])
-    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    x = MS.constrain(x, "batch", None, None)
+    pos = MS.place(torch.arange(x.shape[1], device=x.device)
+                   .expand(x.shape[:2]).contiguous(), x, "batch", None)
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim, chunk=cfg.attn_chunk,
               rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias)
@@ -594,7 +687,8 @@ def encode(cfg: ModelConfig, params, enc_inputs):
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         x = x + L.attention_block(lp["attn"], h, pos, causal=False, **kw)
         h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + L.gated_mlp(lp["mlp"], h)
+        return MS.constrain(x + L.gated_mlp(lp["mlp"], h), "batch", None,
+                            None)
 
     stack = params["encoder"]["layers"]
     for i in range(cfg.enc_layers):
@@ -614,13 +708,15 @@ def forward(cfg: ModelConfig, params, batch, differentiable: bool = True):
     tokens = batch["tokens"]
     B = tokens.shape[0]
     dt = cfg.torch_dtype
-    x = params["embed"].to(dt)[tokens.long()]
+    x = embed_lookup(params["embed"], tokens, dt)
     # gemma-style scale, rounded to the model dtype first
     x = x * torch.full((), cfg.d_model ** 0.5, dtype=dt, device=x.device)
     if cfg.n_prefix_embeds:
         x = torch.cat([batch["prefix_embeds"].to(dt), x], dim=1)
+    x = MS.constrain(x, "batch", None, None)
     S_all = x.shape[1]
-    positions = torch.arange(S_all, device=x.device).expand(B, S_all)
+    positions = MS.place(torch.arange(S_all, device=x.device)
+                         .expand(B, S_all).contiguous(), x, "batch", None)
 
     memory = None
     if cfg.enc_layers:
@@ -628,7 +724,7 @@ def forward(cfg: ModelConfig, params, batch, differentiable: bool = True):
 
     x, aux = _run_stack(cfg, params["layers"], x, positions, memory,
                         cfg.n_layers, differentiable)
-    logits = lm_head(cfg, params, x)
+    logits = MS.constrain(lm_head(cfg, params, x), "batch", None, "model")
     if cfg.n_prefix_embeds:
         logits = logits[:, cfg.n_prefix_embeds:]
     return logits, aux

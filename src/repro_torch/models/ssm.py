@@ -4,11 +4,17 @@ its dtype mix (bf16 activations and state, fp32 ``dt_bias`` / ``A_log`` /
 (``ssd_chunked``: the intra-chunk quadratic form plus the inter-chunk state
 recurrence, a Python loop over chunks here where JAX scans); decode runs
 the O(1) recurrent update (``ssm_decode_step``).
+
+On DTensors the mixer carries the JAX model's constraint on ``xbc``
+(channels on ``model``), and ``ssd_chunked`` runs under ``local_map`` on
+each rank's batch rows.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import sharding as MS
 
 
 def ssd_chunked(x, dt, A, B, C, D, *, chunk=128):
@@ -73,28 +79,86 @@ def ssm_block(p, x, *, headdim, d_state, chunk=128, conv_width=4):
     zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
     z, xbc, dt = (zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * N],
                   zxbcdt[..., 2 * di + 2 * N:])
+    xbc = MS.constrain(xbc, "batch", None, "model")
 
-    # depthwise causal conv over (x, B, C), summed tap by tap in order
-    w = p["conv"]                                         # [w, di+2N]
-    pad = F.pad(xbc, (0, 0, conv_width - 1, 0))
-    conv = pad[:, 0:S] * w[0][None, None]
-    for i in range(1, conv_width):
-        conv = conv + pad[:, i:i + S] * w[i][None, None]
-    xbc = F.silu(conv)
+    # the SSD scan takes each batch row with all its heads: the channels
+    # come back whole before the split (a no-op on one device)
+    xbc = MS.constrain(_conv_by_channels(xbc, p["conv"]), "batch", None,
+                       None)
 
     xs, B, C = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
     xs = xs.reshape(Bsz, S, H, headdim)
     dt = F.softplus(dt + p["dt_bias"][None, None])        # [b,S,H] fp32
     A = (-torch.exp(p["A_log"].float())).to(x.dtype)
 
-    y = ssd_chunked(xs, dt.to(x.dtype), A, B, C, p["D"], chunk=chunk)
-    y = y.reshape(Bsz, S, di)
-    # gated RMSNorm (mamba-2 uses norm(y * silu(z)))
-    y = y * F.silu(z)
-    yf = y.float()
-    y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
-         * (1.0 + p["norm"].float())).to(x.dtype)
+    y = _ssd_by_batch(xs, dt.to(x.dtype), A, B, C, p["D"], chunk)
+    y = _by_rows(_gate_norm, y, z, p["norm"])
     return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def _gate_norm(y, z, norm):
+    """The gated RMSNorm after the scan: y [b,S,H,P] → [b,S,di],
+    ``norm(y * silu(z))`` in fp32, in z's (the block input's) dtype."""
+    b, S = y.shape[:2]
+    yf = (y.reshape(b, S, -1) * F.silu(z)).float()
+    return (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+            * (1.0 + norm.float())).to(z.dtype)
+
+
+def _by_rows(fn, y, z, norm):
+    """``fn(y, z, norm)`` on each rank's batch rows, the channels whole
+    (the norm spans them all); the norm weight's gradient is a partial sum
+    over the batch axes."""
+    py = MS.where(y.shape, "batch", None, None, None)
+    if py is None:
+        return fn(y, z, norm)
+    pz = MS.where(z.shape, "batch", None, None)
+    grad_w = MS.partial_where_split(py)
+    return MS.local_call(fn, pz, (py, pz, MS.where(norm.shape, None)),
+                         y, z, norm, grad_placements=(py, pz, grad_w))
+
+
+def _causal_conv(xbc, w):
+    """silu of the depthwise causal conv of xbc [b,S,ch] with taps w
+    [width, ch], summed tap by tap in order."""
+    S, width = xbc.shape[1], w.shape[0]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    conv = pad[:, 0:S] * w[0][None, None]
+    for i in range(1, width):
+        conv = conv + pad[:, i:i + S] * w[i][None, None]
+    return F.silu(conv)
+
+
+def _conv_by_channels(xbc, w):
+    """``_causal_conv`` on each rank's batch rows and channels (xbc as the
+    JAX constraint places it, the taps as their parameter); the taps'
+    gradient is a partial sum over the batch axes."""
+    px = MS.where(xbc.shape, "batch", None, "model")
+    if px is None or not MS.is_distributed(xbc, w):
+        return _causal_conv(xbc, w)
+    pw = w.placements
+    grad_w = [MS.Partial() if r.is_shard() and r.dim == 0 else q
+              for q, r in zip(pw, px)]
+    return MS.local_call(_causal_conv, px, (px, pw), xbc, w,
+                         grad_placements=(px, grad_w))
+
+
+def _ssd_by_batch(x, dt, A, B, C, D, chunk):
+    """``ssd_chunked`` on each rank's batch rows (the scan is independent
+    per row); A and D replicated, their gradients partial over the batch
+    axes."""
+    px = MS.where(x.shape, "batch", None, None, None)
+    if px is None:
+        return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+    pdt = MS.where(dt.shape, "batch", None, None)
+    pb = MS.where(B.shape, "batch", None, None)
+    rep = MS.where(A.shape, None)
+    grad_rep = MS.partial_where_split(px)
+    return MS.local_call(
+        lambda x, dt, A, B, C, D: ssd_chunked(x, dt, A, B, C, D,
+                                              chunk=chunk),
+        px, (px, pdt, rep, pb, pb, rep), x, dt, A, B, C, D,
+        grad_placements=(px, pdt, grad_rep, pb, pb, grad_rep))
 
 
 def ssm_decode_step(p, x, state, conv_state, *, headdim, d_state,

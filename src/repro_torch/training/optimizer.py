@@ -14,6 +14,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +81,37 @@ def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32. On DTensor
+    leaves each rank sums the squares of its own shards, a leaf replicated
+    over some mesh axes divided by their size (exact: the axes are powers
+    of two), and one all-reduce over the whole mesh sums the ranks'
+    totals; the norm is a replicated DTensor."""
+    leaves = tree_leaves(tree)
+    dts = [x for x in leaves if isinstance(x, DTensor)]
+    if not dts:
+        total = 0
+        for x in leaves:
+            total = total + torch.sum(torch.square(x.to(torch.float32)))
+        return torch.sqrt(total)
+    if len(dts) != len(leaves):
+        raise ValueError("a tree mixes DTensor and plain leaves")
+    mesh = dts[0].device_mesh
     total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.to(torch.float32)))
-    return torch.sqrt(total)
+    for x in dts:
+        copies = 1
+        for i, p in enumerate(x.placements):
+            if not p.is_shard():
+                copies *= mesh.size(i)
+        total = total + torch.sum(torch.square(
+            x.to_local().to(torch.float32))) / copies
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.redistribute(mesh, [Replicate()] * mesh.ndim))
+
+
+def _local(x):
+    """A DTensor's local shard (a replicated scalar's value); else x."""
+    return x.to_local() if isinstance(x, DTensor) else x
 
 
 @torch.no_grad()
@@ -93,7 +120,9 @@ def adamw_update(cfg: OptConfig, params, grads, opt: OptState):
 
     Returns (params, OptState, metrics): the same tensors as were passed
     in, updated in place — ``params`` take the new master weights in their
-    own dtype."""
+    own dtype. On DTensors (each gradient in its parameter's layout) the
+    update is elementwise, so each rank updates its own shards' local
+    tensors, with the replicated scalars' values."""
     step = opt.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -102,17 +131,24 @@ def adamw_update(cfg: OptConfig, params, grads, opt: OptState):
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1 - b1 ** step.to(torch.float32)
     c2 = 1 - b2 ** step.to(torch.float32)
+    l_scale, l_lr, l_c1, l_c2 = (_local(x) for x in (scale, lr, c1, c2))
 
     for g, m, v, master, p in zip(*(tree_leaves(t) for t in
                                     (grads, opt.m, opt.v, opt.master,
                                      params))):
-        g = g.to(torch.float32) * scale
+        if isinstance(p, DTensor) and not (
+                g.placements == m.placements == v.placements
+                == master.placements == p.placements):
+            raise ValueError("a gradient or optimizer leaf is laid out "
+                             "unlike its parameter")
+        g, m, v, master, p = (_local(x) for x in (g, m, v, master, p))
+        g = g.to(torch.float32) * l_scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
-        mhat = m / c1
-        vhat = v / c2
-        master.sub_(lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                          + cfg.weight_decay * master))
+        mhat = m / l_c1
+        vhat = v / l_c2
+        master.sub_(l_lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
+                            + cfg.weight_decay * master))
         p.copy_(master)
     opt.step.copy_(step)
     metrics = {"lr": lr, "grad_norm": gnorm, "clip_scale": scale}

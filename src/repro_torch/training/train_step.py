@@ -5,6 +5,13 @@ in eager PyTorch on one device.
 ``train_step`` consumes the state it is given (its tensors are updated in
 place, as the JAX step donates its state) and returns it with the
 metrics.
+
+On a mesh the same functions run on DTensors: :func:`shard_train_state`
+lays a state out per ``launch/shardings.state_shardings`` (and
+:func:`shard_batch` a batch per ``batch_shardings``), and ``train_step``
+runs under the ambient mesh (``models/sharding.set_mesh``). Each gradient
+is reduced to its parameter's layout (the data axes' all-reduce) before
+the update.
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.models import sharding as MS
 from repro_torch.models.model import (ModelConfig, _map_spec,
                                       abstract_params, forward, init_params,
                                       param_spec, params_from_numpy)
@@ -87,15 +95,38 @@ def loss_fn(cfg: ModelConfig, tc: TrainConfig, params, batch):
     targets = batch["targets"].long()
     logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
-            >= cfg.vocab_size
+        pad = MS.place(torch.arange(cfg.padded_vocab, device=logits.device)
+                       >= cfg.vocab_size, logits, "model")
         logits = torch.where(pad[None, None, :], -1e30, logits)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    gold = target_logits(logits, targets)
     ce = (lse - gold).mean()
     zl = tc.z_loss * torch.square(lse).mean()
     loss = ce + zl + tc.moe_aux * aux
     return loss, {"ce": ce, "z_loss": zl, "moe_aux": aux}
+
+
+def target_logits(logits, targets):
+    """``logits[b, s, targets[b, s]]``. On DTensors with the vocab split
+    over ``model`` (the logits' constraint) each rank picks the targets in
+    its own vocab block, zero elsewhere, and the partial sum over the model
+    axis completes the pick."""
+    pl = MS.where(logits.shape, "batch", None, "model")
+    if pl is None or not MS.is_distributed(logits):
+        return torch.gather(logits, -1, targets[..., None])[..., 0]
+    split = MS.Shard(2) in pl
+    pt = MS.where(targets.shape, "batch", None)
+
+    def pick(lg, tg):
+        V = lg.shape[-1]
+        t = tg.long() - (MS.mesh_coordinate("model") * V if split else 0)
+        hit = (t >= 0) & (t < V)
+        g = torch.gather(lg, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+        return torch.where(hit, g, 0.0)
+
+    out = [MS.Partial() if p == MS.Shard(2) else p for p in pl]
+    return MS.local_call(pick, out, (pl, pt), logits, targets,
+                         grad_placements=(pl, pt))
 
 
 def _grads(cfg, tc, params, batch):
@@ -105,8 +136,34 @@ def _grads(cfg, tc, params, batch):
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, parts = loss_fn(cfg, tc, live, batch)
     grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    tree = tree_map(lambda _: next(grads), params)
+    # on a mesh each gradient takes its parameter's layout: partial sums
+    # over the batch axes are all-reduced here
+    tree = tree_map(lambda p: _like(next(grads), p), params)
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, tree
+
+
+def _like(g, p):
+    if isinstance(p, MS.DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def shard_train_state(state: TrainState, mesh, attn_dshard: bool = False
+                      ) -> TrainState:
+    """``state`` (full tensors on this rank's device, or meta) laid out on
+    ``mesh`` per ``launch/shardings.state_shardings``: each rank keeps its
+    slices (``sharding.distribute_tree``; no collective). The state passed
+    in is consumed."""
+    from repro_torch.launch.shardings import state_shardings
+    return MS.distribute_tree(state, state_shardings(mesh, state,
+                                                     attn_dshard), mesh)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh):
+    """A global batch laid out on ``mesh`` per
+    ``launch/shardings.batch_shardings`` (its rows over the batch axes)."""
+    from repro_torch.launch.shardings import batch_shardings
+    return MS.distribute_tree(batch, batch_shardings(mesh, batch), mesh)
 
 
 def train_step(cfg: ModelConfig, tc: TrainConfig, state: TrainState,
@@ -138,7 +195,9 @@ def train_step(cfg: ModelConfig, tc: TrainConfig, state: TrainState,
         grads = tree_map(lambda g: g / n_micro, grads)
 
     params, opt, om = adamw_update(tc.opt, state.params, grads, state.opt)
-    metrics = {"loss": loss, **parts, **om}
+    # on a mesh the scalar metrics come back as full (plain) tensors
+    metrics = {k: v.full_tensor() if isinstance(v, MS.DTensor) else v
+               for k, v in {"loss": loss, **parts, **om}.items()}
     return TrainState(params, opt), metrics
 
 

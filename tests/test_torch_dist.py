@@ -18,7 +18,9 @@ lanes in the batches. The union content must equal ``SeqExtHash`` over the
 aggregate ``dmax + shard_bits`` bits; a JAX sharded state must load into
 the port through ``from_numpy_state`` and continue identically; and a
 shard that doubles its directory inside a sharded transaction must leave
-the deeper directory in the stacked state.
+the deeper directory in the stacked state. ``dist_check`` ends with the
+compressed all-reduce's check on 4 gloo ranks, its errors equal to the
+JAX arithmetic's.
 """
 import os
 import subprocess
@@ -343,9 +345,47 @@ def test_directory_doubling_lands_in_the_stacked_state():
     assert found.all() and vals.tolist() == (keys * 7).tolist()
 
 
-def test_dist_check_module_passes():
+def test_dist_check_module_passes(capfd):
+    """The CLI's checks, then the JAX ``check_compression``'s counterpart
+    on 4 gloo ranks (their output reaches this process's descriptors): the
+    ``compression OK`` line, whose one-step and two-step errors equal the
+    JAX per-rank arithmetic (``_quantize``, error feedback) over the same
+    4 gradients, to the 4 printed decimals."""
+    import re
+
+    import jax.numpy as jnp
+    from repro.distributed.compression import _quantize
     from repro_torch.core import dist_check
+
     assert dist_check.main(["--device", "cpu"]) == 0
+    lines = capfd.readouterr().out.splitlines()
+    assert sum(ln.startswith("dist table OK") for ln in lines) == 2
+    got = [re.fullmatch(r"compression OK: one-step err ([0-9.]+), two-step "
+                        r"feedback err ([0-9.]+) \(scale ([0-9.]+)\)", ln)
+           for ln in lines]
+    got = [m for m in got if m]
+    assert len(got) == 1, lines
+    got = got[0]
+
+    world = 4
+    base = np.random.default_rng(3).standard_normal((64, 32)).astype(
+        np.float32)
+    red = [0.0, 0.0]
+    for r in range(world):
+        g = jnp.asarray(base * np.float32(r + 1))
+        res = jnp.zeros_like(g)
+        for step in range(2):
+            x = g + res
+            q, s = _quantize(x)
+            part = q.astype(jnp.float32) * s
+            red[step] = red[step] + np.asarray(part, np.float64)
+            res = x - part
+    exact = base.astype(np.float64) * (sum(range(1, world + 1)) / world)
+    err1 = np.abs(red[0] / world - exact).max()
+    err2 = np.abs((red[0] + red[1]) / (2 * world) - exact).max()
+    assert float(got.group(1)) == pytest.approx(err1, abs=1e-4)
+    assert float(got.group(2)) == pytest.approx(err2, abs=1e-4)
+    assert float(got.group(3)) == pytest.approx(np.abs(exact).max(), abs=1e-2)
 
 
 def test_sharded_spec_and_facade_contract():

@@ -14,11 +14,19 @@ package's.
   skipped with the JAX reason, everything else ``ok``; with ``--variant
   paged`` the decode cells fail for the stated cause (the WF-Ext table
   has no meta plan), the rest stay ``ok``; every other variant's decode
-  cells are ``ok``;
+  cells are ``ok``; every ``ok`` mesh record carries the traced step's
+  collective bytes, ``collective_s`` and local FLOPs;
 * an ``h100x1`` record's traced FLOPs equal ``FlopCounterMode`` over one
   real ``train_step`` on the CPU at the same shape, and its argument bytes
   the real state's and batch's; a mesh record's per-device argument bytes
-  equal each leaf's elements over its spec's axis sizes.
+  equal each leaf's elements over its spec's axis sizes;
+* the mesh trace's counter (``costmodel.MeshTrace``) equals a hand count
+  on a column- then row-parallel matmul pair (FLOPs, bytes by kind, axis
+  and link, ``collective_s``); a smoke ``train_4k`` record on a fake
+  (4, 4) world has collective bytes, a data-axis gradient all-reduce at
+  least the gradients' bytes, and 16 ranks' local FLOPs at least the
+  one-card trace's, with the JAX dry-run's per-kind bytes for the cell
+  beside them in the messages.
 """
 import dataclasses
 import importlib.util
@@ -30,6 +38,7 @@ import sys
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import archs as JA
@@ -155,8 +164,12 @@ def test_smoke_sweep_all_meshes(smoke, tmp_path):
             if mesh == "h100x1":
                 assert r["traced_flops"] > 0
             else:
-                assert r["collective_bytes_per_device"] is None
-                assert r["roofline"]["collective_s"] is None
+                coll = r["collective_bytes_per_device"]
+                assert coll["total"] == sum(
+                    v for k, v in coll.items() if k != "total") > 0
+                assert r["roofline"]["collective_s"] == r["collective_s"] > 0
+                assert r["traced_flops_per_device"] > 0
+                assert r["trace_s"] > 0
     assert sum(r["status"] == "skipped" for r in recs.values()) == 8 * 3
 
 
@@ -224,3 +237,113 @@ def test_mesh_record_bytes_per_device():
         assert "embed" not in rec["replicated_params"]
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the mesh trace: collectives and FLOPs per device
+
+
+@pytest.fixture
+def world16():
+    assert not dist.is_initialized()
+    D.fake_world(16)
+    try:
+        yield init_device_mesh("cpu", (4, 4), mesh_dim_names=("data",
+                                                               "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_collective_counter_hand_count(world16):
+    """A column- then row-parallel matmul pair on a (4, 4) world: rank 0
+    runs both local matmuls, one all-reduce of its [B/4, D] partial output
+    over ``model`` (ranks 0-3: one node, NVLink) and, to gather the rows,
+    one all-gather over ``data`` (ranks 0, 4, 8, 12: two nodes, the NIC)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = world16
+    B, Dm, F = 64, 128, 512
+
+    def put(shape, pl):
+        return DTensor.from_local(torch.empty(shape, device="meta"), mesh,
+                                  pl, run_check=False)
+
+    x = put((B // 4, Dm), [Shard(0), Replicate()])
+    w1 = put((Dm, F // 4), [Replicate(), Shard(1)])
+    w2 = put((F // 4, Dm), [Replicate(), Shard(0)])
+    with CM.MeshTrace(mesh) as trace:
+        y = ((x @ w1) @ w2).redistribute(mesh, [Shard(0), Replicate()])
+        y.redistribute(mesh, [Replicate(), Replicate()])
+    reduced, gathered = B // 4 * Dm * 4, B * Dm * 4
+    assert trace.flops == 2 * (B // 4) * Dm * (F // 4) * 2
+    assert dict(trace.bytes_by_kind) == {"all-reduce": reduced,
+                                         "all-gather": gathered}
+    assert {a: dict(k) for a, k in trace.bytes_by_axis.items()} == {
+        "model": {"all-reduce": reduced}, "data": {"all-gather": gathered}}
+    assert dict(trace.bytes_by_link) == {"nvlink": reduced, "nic": gathered}
+    assert trace.collective_s == pytest.approx(
+        reduced / CM.NVLINK_BYTES_S + gathered / CM.NIC_BYTES_S, rel=1e-12)
+    assert dict(trace.calls) == {"all-reduce": 1, "all-gather": 1}
+
+
+_JAX_RECORD = r"""
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, Mesh
+from repro import compat
+from repro.configs.archs import smoke_config
+from repro.launch.shardings import batch_shardings, state_shardings
+from repro.training.train_step import TrainConfig, init_train_state, train_step
+from benchmarks.costmodel import collective_bytes_scaled
+arch, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = smoke_config(arch)
+mesh = Mesh(np.array(jax.devices()[:16]).reshape(4, 4), ("data", "model"),
+            axis_types=(AxisType.Auto,) * 2)
+specs = {k: jax.ShapeDtypeStruct((B, S), jnp.int32)
+         for k in ("tokens", "targets")}
+with compat.set_mesh(mesh):
+    st = jax.eval_shape(lambda k: init_train_state(cfg, k), jax.random.key(0))
+    step = jax.jit(lambda s, b: train_step(cfg, TrainConfig(), s, b),
+                   in_shardings=(state_shardings(mesh, st),
+                                 batch_shardings(mesh, specs)))
+    hlo = step.lower(st, specs).compile().as_text()
+trips = (cfg.n_layers, cfg.enc_layers, max(S // cfg.attn_chunk, 1),
+         max(S // max(cfg.ssm_chunk, 1), 1))
+json.dump(collective_bytes_scaled(hlo, plausible_trips=trips)[0], sys.stdout)
+"""
+
+
+def test_mesh_train_record_on_a_4x4_world(world16):
+    """A smoke ``train_4k``-shaped record on a fake (4, 4) world: collective
+    bytes by kind, by axis and by link, the data axis's gradient all-reduce
+    at least the bytes of the gradients of the data-replicated parameters
+    (every parameter), and the local FLOPs of 16 ranks at least the
+    one-card trace's. The JAX dry-run's per-kind bytes for the same cell
+    (automatic-axis (4, 4) mesh, HLO parse) are written beside the port's
+    in the assertion messages."""
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=16")
+    shape = SMOKE_SHAPES["train_4k"]
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_RECORD, "smollm-135m",
+         str(shape.global_batch), str(shape.seq_len)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cfg = A.smoke_config("smollm-135m")
+    rec = D.mesh_record(cfg, shape, world16)
+    out, err = jax_proc.communicate(timeout=300)
+    assert jax_proc.returncode == 0, err[-3000:]
+    beside = f"port {rec['collective_bytes_per_device']}, JAX {out}"
+
+    coll = rec["collective_bytes_per_device"]
+    assert coll["total"] == sum(v for k, v in coll.items()
+                                if k != "total") > 0, beside
+    assert rec["roofline"]["collective_s"] == rec["collective_s"] > 0
+    assert set(rec["collective_bytes_by_link"]) == {"nvlink", "nic"}, beside
+    _, args = D.step_inputs(cfg, shape)
+    grads = D.local_bytes(world16, args[0].params,
+                          D.state_shardings(world16, args[0].params))
+    assert rec["collective_bytes_by_axis"]["data"]["all-reduce"] >= grads, \
+        beside
+    one = D.one_card_record(cfg, shape)["traced_flops"]
+    assert rec["traced_flops_per_device"] * 16 >= one, beside
+    assert rec["traced_flops_per_device"] < one, beside
+    assert rec["collective_link"]["source"] == CM.LINK_SOURCE

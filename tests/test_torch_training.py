@@ -349,11 +349,17 @@ def test_abstract_train_state_matches_init(arch):
         assert str(s.dtype) == str(abstract[k].dtype).replace("torch.", ""), k
 
 
-def test_launcher_refuses_a_mesh():
+def test_launcher_refuses_a_mesh(monkeypatch):
+    """A mesh (``--data`` or ``--model`` above 1) with no ranks to run on
+    is refused: ``ValueError`` before any process group starts (the mesh
+    itself runs in ``tests/test_torch_mesh_train.py``)."""
+    import torch.distributed as dist
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     for flag in ("--data", "--model"):
-        with pytest.raises(NotImplementedError, match="multi-card"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                          flag, "2"])
+    assert not dist.is_initialized()
 
 
 def test_lr_schedule_shape():
