@@ -18,7 +18,13 @@ printing one JSON line:
    rows) and ``grouped_apply`` (4,096 lanes sorted by (bucket, lane) and in
    lane order, idle lanes on live buckets; 3 chunks and 17 lanes whose
    buckets span the chunk borders; every lane on one bucket), over carried
-   rounds, one line per case, the trash row untouched; then one case per
+   rounds, one line per case, the trash row untouched; every launch shape
+   besides the defaults (block 64, chunk 4,096; ``kernels/tuning.py``)
+   against the same plain outputs, one line each: both probes at blocks
+   32, 128 and 256 on the ``slots_b8``, ``slots_b32``, ``empty_b8`` and
+   ``keys_off16_b8`` row cases, ``grouped_apply`` at chunks 1,024 and
+   2,048 on all four of its cases (the chunk-spanning one spans the
+   borders of every chunk); then one case per
    kernel at ``hash_shift = 2``, the sharded path's, at its shard pool
    and widths (``shift_cases``: the fused kernels shift the hash
    themselves, the unfused ones take bucket ids routed by the shifted
@@ -51,7 +57,18 @@ printing one JSON line:
    on the wide path's queries and the launch floor (a one-element add);
    the two probes warm (back to back) and cold (the L2 flushed before each
    launch), each also above the floor timed the same way; each kernel's
-   registers and spills from its ``ptxas -v`` report (no spills);
+   registers and spills from its ``ptxas -v`` report, every instantiation
+   (no spills); and, with a generator of its own, warm ms per launch
+   shape (``tile_times``): both probes at every block and ``grouped_apply``
+   at every chunk, on the main shapes (4,608 queries, 512 lanes) and the
+   wide ones (36,864, 4,096). Then the ``tuning`` line: ``TableSpec(
+   autotune="measured")`` resolved on the card for the main and the wide
+   geometry with the tile cache under ``build/chip_smoke/``, cold (source
+   ``measured``, its seconds) and again after ``clear_registry()`` (source
+   ``cache``, no runner call, the same tiles), the winners beside the
+   heuristic's, and a lookup round on each table and a 4,096-op write
+   round on the wide one under both plans (statuses, lookups and every
+   state array equal);
 8. the page-table path: the main geometry with the serving tier's
    ``(page, length)`` value schema (``repro/serving/kvcache.py``), keys
    ``(seq << 12) | block`` for 4,096 sequences of 128 blocks preloaded in
@@ -198,7 +215,8 @@ printing one JSON line:
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
 kernel's launches on the sharded, the LLM, the sharded serving, the
 training path, the launch tier and the mesh train step beside the main
-path's) and, last,
+path's, and the probes' and ``grouped_apply``'s warm ms per launch shape)
+and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
 without the repository beside it, the script fails.
@@ -464,40 +482,67 @@ def sorted_ops(kinds, keys, values, bids, P):
     return [x[order].astype(np.int32) for x in (kinds, keys, values, bids)]
 
 
-def apply_case(kernel, plain, pk, pv, batches, dev):
+def apply_case(kernel, plain, pk, pv, batches, dev, variants=None):
     """Carry the [P+1, B] pools ``pk``/``pv`` through ``batches`` in the
     kernel and in its plain version: outputs and rows 0..P-1 compared
-    exactly after every batch, and the kernel's trash row untouched."""
+    exactly after every batch, and the kernel's trash row untouched.
+    ``variants`` ({name: kernel}, the kernel at other launch shapes) each
+    carry their own copy of the pools through the same batches against the
+    same plain outputs; their results come back under ``"variants"``."""
     P = pk.shape[0] - 1
-    k_pk, k_pv = torch.tensor(pk, device=dev), torch.tensor(pv, device=dev)
-    p_pk, p_pv = k_pk.clone(), k_pv.clone()
-    mm = err = 0
-    seen = set()
+    runs = {None: kernel, **(variants or {})}
+    pools = {name: (torch.tensor(pk, device=dev), torch.tensor(pv, device=dev))
+             for name in runs}
+    p_pk, p_pv = (torch.tensor(x, device=dev) for x in (pk, pv))
+    acc = {name: {"mismatches": 0, "max_abs_err": 0, "seen": set()}
+           for name in runs}
     for ops in batches:
-        kout = kernel(*ops, k_pk, k_pv)[2:]
         pout = plain(*ops, p_pk, p_pv)[2:]
-        torch.cuda.synchronize()
-        mm += sum(int((a != b).sum()) for a, b in zip(kout, pout))
-        mm += int((k_pk[:P] != p_pk[:P]).sum() + (k_pv[:P] != p_pv[:P]).sum())
-        err = max(err, int((k_pv[:P].long() - p_pv[:P].long()).abs().max()))
-        seen |= set(kout[0].tolist())
-    trash = bool((k_pk[P].cpu().numpy() == pk[P]).all()
-                 and (k_pv[P].cpu().numpy() == pv[P]).all())
-    out = {"lanes": int(batches[0][0].shape[0]), "rounds": len(batches),
-           "B": int(pk.shape[1]), "statuses": sorted(seen),
-           "mismatches": mm, "max_abs_err": err,
-           "trash_row_untouched": trash}
+        for name, fn in runs.items():
+            k_pk, k_pv = pools[name]
+            kout = fn(*ops, k_pk, k_pv)[2:]
+            torch.cuda.synchronize()
+            a = acc[name]
+            a["mismatches"] += sum(int((x != y).sum())
+                                   for x, y in zip(kout, pout))
+            a["mismatches"] += int((k_pk[:P] != p_pk[:P]).sum()
+                                   + (k_pv[:P] != p_pv[:P]).sum())
+            a["max_abs_err"] = max(a["max_abs_err"], int(
+                (k_pv[:P].long() - p_pv[:P].long()).abs().max()))
+            a["seen"] |= set(kout[0].tolist())
+    res = {}
+    for name, a in acc.items():
+        k_pk, k_pv = pools[name]
+        res[name] = {"lanes": int(batches[0][0].shape[0]),
+                     "rounds": len(batches), "B": int(pk.shape[1]),
+                     "statuses": sorted(a["seen"]),
+                     "mismatches": a["mismatches"],
+                     "max_abs_err": a["max_abs_err"],
+                     "trash_row_untouched": bool(
+                         (k_pk[P].cpu().numpy() == pk[P]).all()
+                         and (k_pv[P].cpu().numpy() == pv[P]).all())}
+    out = res.pop(None)
     if len(batches[0]) == 4:        # grouped_apply: ops carry bucket ids
         collide = 0
         for kinds, _, _, bids in batches:
             live = torch.unique(bids[kinds != 0])
             collide += int(torch.isin(bids[kinds == 0], live).sum())
         out["idle_lanes_on_live_buckets"] = collide
+    if variants:
+        out["variants"] = res
     return out
 
 
 ROW_CASES = [("slots", 4), ("slots", 8), ("slots", 32), ("keys_off16", 8),
              ("vals_off16", 8), ("empty", 8)]
+# the launch shapes besides the defaults (kernels/tuning.py), each checked
+# against the plain versions: the probes' block sizes on these row cases
+# (both row paths, hits at every slot position), grouped_apply's chunks on
+# all of its cases
+DEFAULT_TILES = {"block": 64, "chunk": 4096}
+OTHER_BLOCKS = (32, 128, 256)
+OTHER_CHUNKS = (1024, 2048)
+TILE_ROW_CASES = ("slots_b8", "slots_b32", "empty_b8", "keys_off16_b8")
 
 
 def offset_by_one(x: np.ndarray, dev):
@@ -549,26 +594,31 @@ def row_probe_cases(rng, dev, P=1 << 14):
                     dmax=dmax), torch.tensor(directory, device=dev)),
                 "probe": (probe, probe_plain, {},
                           torch.tensor(bids, device=dev))}
+        blocks = (DEFAULT_TILES["block"],) + (
+            OTHER_BLOCKS if f"{case}_b{B}" in TILE_ROW_CASES else ())
         for name, (kernel, plain, kw, first) in runs.items():
-            kf, kv = kernel(first, q_t, pk_t, pv_t, **kw)
             pf, pvals = plain(first, q_t, pk_t, pv_t, **kw)
-            torch.cuda.synchronize()
-            mm = int((kf != pf).sum() + (kv != pvals).sum())
-            err = int((kv.long() - pvals.long()).abs().max())
-            emit({"phase": "kernel_case", "kernel": name,
-                  "case": f"{case}_b{B}", "B": B, "queries": int(q.size),
-                  "found": int(kf.sum()), "empty_queries": int(
-                      (q == EMPTY).sum()), "slot_positions_hit": positions,
-                  "mismatches": mm, "max_abs_err": err})
-            check(mm == 0, f"{name} {case}_b{B}: disagrees with its plain "
-                  f"version in {mm} outputs")
-            check(positions == B, f"{case}_b{B}: hits at {positions} of "
-                  f"{B} slot positions")
-            out[name] = (out[name][0] + mm, max(out[name][1], err))
+            for block in blocks:
+                kf, kv = kernel(first, q_t, pk_t, pv_t, block=block, **kw)
+                torch.cuda.synchronize()
+                mm = int((kf != pf).sum() + (kv != pvals).sum())
+                err = int((kv.long() - pvals.long()).abs().max())
+                emit({"phase": "kernel_case", "kernel": name,
+                      "case": f"{case}_b{B}", "B": B, "block": block,
+                      "queries": int(q.size), "found": int(kf.sum()),
+                      "empty_queries": int((q == EMPTY).sum()),
+                      "slot_positions_hit": positions, "mismatches": mm,
+                      "max_abs_err": err})
+                check(mm == 0, f"{name} {case}_b{B} block {block}: "
+                      f"disagrees with its plain version in {mm} outputs")
+                check(positions == B, f"{case}_b{B}: hits at {positions} "
+                      f"of {B} slot positions")
+                out[name] = (out[name][0] + mm, max(out[name][1], err))
     return out
 
 
 def kernel_checks(rng, dev):
+    t_phase = time.perf_counter()
     from repro_torch.kernels.apply import (GROUPED_CHUNK, ST_FALSE,
                                            ST_FROZEN, ST_FULL, ST_IDLE,
                                            ST_TRUE, fused_apply,
@@ -698,15 +748,27 @@ def kernel_checks(rng, dev):
             "one_bucket": (*grouped, 2, lambda: ops(
                 m + 17, rng.choice(few, size=m + 17))
                 + [np.full(m + 17, r_hot)])}}
+    # grouped_apply at its other chunks, on the same batches
+    chunks = {c: (lambda c: lambda *a: grouped_apply(*a, chunk=c))(c)
+              for c in OTHER_CHUNKS}
     results = {k: {} for k in cases}
     for kernel, kcases in cases.items():
         for case, (fn, plain, pk0, pv0, rounds, make) in kcases.items():
             res = apply_case(fn, plain, pk0, pv0, [
                 [torch.tensor(np.asarray(x).astype(np.int32), device=dev)
-                 for x in make()] for _ in range(rounds)], dev)
+                 for x in make()] for _ in range(rounds)], dev,
+                variants=chunks if kernel == "grouped_apply" else None)
+            tiles = res.pop("variants", {})
+            if kernel == "grouped_apply":
+                res["chunk"] = DEFAULT_TILES["chunk"]
             results[kernel][case] = res
             emit({"phase": "kernel_case", "kernel": kernel, "case": case,
                   **res})
+            for c, r in tiles.items():
+                r["chunk"] = c
+                results[kernel][f"{case}_chunk{c}"] = r
+                emit({"phase": "kernel_case", "kernel": kernel,
+                      "case": case, **r})
     for kernel, kres in results.items():
         for case, res in kres.items():
             check(res["mismatches"] == 0, f"{kernel} {case}: disagrees with "
@@ -743,7 +805,8 @@ def kernel_checks(rng, dev):
         "cases": sorted(results["fused_apply"]), "mismatches": apply_mm,
         "max_abs_err": apply_err}, "grouped_apply": {
         "cases": sorted(results["grouped_apply"]), "mismatches": g_mm,
-        "max_abs_err": g_err}, "ok": True})
+        "max_abs_err": g_err}, "seconds": time.perf_counter() - t_phase,
+        "ok": True})
     return {"fused_probe": (probe_mm, probe_err),
             "fused_apply": (apply_mm, apply_err),
             "probe": (routed_mm, routed_err),
@@ -1540,8 +1603,12 @@ REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:190",
 
 
 def ptxas_report():
-    """Registers and spills of every kernel entry, from the ``ptxas -v``
-    report the build keeps beside each library."""
+    """Registers and spills of every kernel entry (every instantiation:
+    each probe at each block size and row path, ``grouped_apply`` at each
+    chunk and row type), from the ``ptxas -v`` report the build keeps
+    beside each library; ``template`` lists an entry's integer template
+    arguments (a probe's threads and vector width, ``grouped_apply``'s
+    lanes a thread and row slots, ``fused_apply``'s row slots)."""
     import re
 
     from repro_torch.kernels import _build
@@ -1552,7 +1619,10 @@ def ptxas_report():
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
             if m:
-                cur = {"entry": m.group(1)}
+                cur = {"entry": m.group(1), "template": [
+                    int(x) for x in re.findall(r"Li(\d+)E", m.group(1))]}
+                if "MemoryRow" in m.group(1):
+                    cur["row"] = "memory"
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -1578,10 +1648,60 @@ def launch_floor_ms():
                                                       200)
 
 
-def kernel_times(t, tw, rng, dev, launches, checks):
+def tile_times(t, tw, rng, dev):
+    """Warm ms per launch (``cuda_ms``, 200 launches) of the three kernels
+    that take a launch shape, at every shape, on the main table's shapes
+    (4,608 queries, 512 lanes) and the wide table's (36,864 queries, 4,096
+    lanes): both probes at every block (``probe`` after the route in
+    PyTorch, untimed), ``grouped_apply`` at every chunk on its own scratch
+    copy of the pools. Draws from its own generator ``rng``. Returns
+    {kernel: {shape: {tile: ms}}}."""
+    from repro_torch.core import table as T
+    from repro_torch.kernels.apply import grouped_apply
+    from repro_torch.kernels.lookup import fused_probe, probe
+    from repro_torch.kernels.tuning import BLOCKS, CHUNKS
+
+    t_phase = time.perf_counter()
+    out = {"fused_probe": {}, "probe": {}, "grouped_apply": {}}
+    for shape, tab, N in (("main", t, LOOKUPS_PER_ROUND),
+                          ("wide", tw, WIDE_LOOKUPS)):
+        cfg, st = tab.config, tab.state
+        live = live_keys(tab)
+        pk, pv = st.keys[:-1], st.vals[:-1]
+        qs = [torch.tensor(half_live(rng, live, N), device=dev)
+              for _ in range(16)]
+        bids = [T._route(cfg, st.directory, q)[1] for q in qs]
+        out["fused_probe"][shape] = {str(b): cuda_ms(
+            lambda i, b=b: fused_probe(st.directory, qs[i % 16], pk, pv,
+                                       dmax=cfg.dmax, block=b), 200)
+            for b in BLOCKS}
+        out["probe"][shape] = {str(b): cuda_ms(
+            lambda i, b=b: probe(bids[i % 16], qs[i % 16], pk, pv, block=b),
+            200) for b in BLOCKS}
+        batches = [[kinds, keys, values, T._route(cfg, st.directory,
+                                                  keys)[1]]
+                   for kinds, keys, values in write_ops(
+                       rng, live, cfg.n_lanes, dev, 16)]
+        ms = {}
+        for c in CHUNKS:
+            spk, spv = st.keys.clone(), st.vals.clone()
+            ms[str(c)] = cuda_ms(lambda i, c=c: grouped_apply(
+                *batches[i % 16], spk, spv, chunk=c), 200)
+            del spk, spv
+        out["grouped_apply"][shape] = ms
+    emit({"phase": "tile_times", "queries": {
+        "main": LOOKUPS_PER_ROUND, "wide": WIDE_LOOKUPS}, "lanes": {
+        "main": MAIN_SPEC["n_lanes"], "wide": WIDE_SPEC["n_lanes"]},
+        "default": DEFAULT_TILES, "warm_ms": out,
+        "seconds": time.perf_counter() - t_phase, "ok": True})
+    return out
+
+
+def kernel_times(t, tw, rng, dev, launches, checks, tile_rng):
     times, info_main = fused_times(t, rng, dev)
     wide_times, info_wide = unfused_times(tw, rng, dev)
     times.update(wide_times)
+    tiles = tile_times(t, tw, tile_rng, dev)
     ptxas = ptxas_report()
     emit({"phase": "ptxas", "kernels": ptxas})
     for name in REPLACES:
@@ -1602,7 +1722,128 @@ def kernel_times(t, tw, rng, dev, launches, checks):
         line["registers"] = [e["registers"] for e in ptxas[line["name"]]]
         if line["name"] in ("fused_probe", "probe"):
             line["cold_ms"] = info[f"{line['name']}_cold_ms"]
+        if line["name"] in tiles:
+            line["tile"] = "chunk" if line["name"] == "grouped_apply" \
+                else "block"
+            line["tile_warm_ms"] = tiles[line["name"]]
     return lines
+
+
+# ---------------------------------------------------------------------------
+# the tuning line: the measured plan (kernels/tuning.py) on the card
+
+
+def tuning_path(t, tw, rng, dev):
+    """``TableSpec(autotune="measured")`` resolved on the card for
+    ``MAIN_SPEC`` and ``WIDE_SPEC``, with the tile cache at
+    ``build/chip_smoke/tile_cache.json`` (emptied first): cold (the sweep
+    runs, source ``measured``), then, after ``clear_registry()``, again
+    (source ``cache``, no runner call, the same tiles); the winners beside
+    the heuristic's. Then one lookup round on each table (4,608 queries on
+    the main one, 36,864 on the wide one) and one 4,096-op write round on
+    the wide one, each on a copy of the table under the measured plan and
+    under the heuristic plan: statuses, lookups and every state array
+    equal. The registry is cleared and the cache path restored after, so
+    later phases run the default tiles. Draws from its own ``rng``."""
+    from repro_torch.core import table as T
+    from repro_torch.kernels import tuning
+    from repro_torch.table_api import TableSpec
+
+    t_phase = time.perf_counter()
+    cache = ROOT / "build" / "chip_smoke" / "tile_cache.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    specs = {"main": MAIN_SPEC, "wide": WIDE_SPEC}
+    saved = tuning.cache_path
+    tuning.cache_path = lambda: cache
+    tuning.clear_registry()
+    try:
+        heuristic = {k: TableSpec(**v, backend="cuda").plan(dev.type)
+                     for k, v in specs.items()}
+        runs = {}
+        for run in ("cold", "cache"):
+            if run == "cache":
+                tuning.clear_registry()
+            calls = tuning.autotune.runner_calls
+            t0 = time.perf_counter()
+            plans = {k: TableSpec(**v, backend="cuda", autotune="measured")
+                     .plan(dev.type) for k, v in specs.items()}
+            torch.cuda.synchronize()
+            runs[run] = {"seconds": time.perf_counter() - t0,
+                         "runner_calls": tuning.autotune.runner_calls - calls,
+                         "plans": plans}
+        measured = runs["cold"]["plans"]
+        for k in specs:
+            check(measured[k].source == "measured",
+                  f"tuning {k}: cold source {measured[k].source}")
+            check(runs["cache"]["plans"][k].source == "cache",
+                  f"tuning {k}: second source "
+                  f"{runs['cache']['plans'][k].source}")
+            check(runs["cache"]["plans"][k] == measured[k],
+                  f"tuning {k}: cached plan differs from the measured one")
+        check(runs["cold"]["runner_calls"] > 0, "tuning: no sweep ran")
+        check(runs["cache"]["runner_calls"] == 0, "tuning: the cache hit "
+              f"called the runner {runs['cache']['runner_calls']} times")
+
+        def on_copy(tab, plan_of):
+            spec = TableSpec(**specs[plan_of[0]], backend="cuda",
+                             autotune=plan_of[1])
+            return tab._replace(spec=spec, state=copy_state(tab.state))
+
+        rounds, mismatches = {}, 0
+        zero_counts()
+        for name, tab, N, write in (("main", t, LOOKUPS_PER_ROUND, False),
+                                    ("wide", tw, WIDE_LOOKUPS, True)):
+            live = live_keys(tab)
+            q = torch.tensor(half_live(rng, live, N), device=dev)
+            ops = write_ops(rng, live, specs[name]["n_lanes"], dev, 1)[0]
+            got = {}
+            for policy in ("off", "measured"):
+                c = on_copy(tab, (name, policy))
+                found, vals = c.lookup(q)
+                out = [found, vals]
+                if write:
+                    c, res = c.apply(*ops)
+                    out.append(res.status)
+                got[policy] = (out, T.to_numpy(c.state))
+            torch.cuda.synchronize()
+            (a, sa), (b, sb) = got["off"], got["measured"]
+            mm = sum(int((x != y).sum()) for x, y in zip(a, b))
+            mm += sum(int((sa[f] != sb[f]).sum()) for f in sa)
+            mismatches += mm
+            rounds[name] = {"lookups": N, "writes": len(ops[0]) if write
+                            else 0, "found": int(b[0].sum()),
+                            "mismatches": mm}
+        launches = read_counts()
+        check(mismatches == 0, f"measured plan against the heuristic plan: "
+              f"{mismatches} mismatches")
+        entries = json.loads(cache.read_text())
+    finally:
+        tuning.cache_path = saved
+        tuning.clear_registry()
+
+    def tiles(plan):
+        return {"lookup": dataclasses.asdict(plan.lookup_tiles),
+                "apply": dataclasses.asdict(plan.apply_tiles)}
+
+    emit({"phase": "tuning", "gpu": smi_line(),
+          "backend_tag": tuning.device_tag(dev),
+          "specs": list(specs), "cold": {
+              "source": {k: p.source for k, p in measured.items()},
+              "seconds": runs["cold"]["seconds"],
+              "runner_calls": runs["cold"]["runner_calls"]},
+          "cache": {"source": {k: p.source for k, p in
+                               runs["cache"]["plans"].items()},
+                    "seconds": runs["cache"]["seconds"],
+                    "runner_calls": runs["cache"]["runner_calls"]},
+          "winners": {k: tiles(p) for k, p in measured.items()},
+          "heuristic": {k: tiles(p) for k, p in heuristic.items()},
+          "mean_ms": {key.split("::")[1]: e["mean_s"] * 1e3
+                      for key, e in entries.items()},
+          "rounds": rounds, "launches": launches,
+          "mismatches": mismatches,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -4343,7 +4584,9 @@ def main() -> int:
     plan_parity(t, rng, dev, MAIN_SPEC, 64, "main")
     plan_parity(tw, rng, dev, WIDE_SPEC, 16, "wide")
     t = profile_rounds(t, rng, dev)
-    kernels = kernel_times(t, tw, rng, dev, launches, checks)
+    kernels = kernel_times(t, tw, rng, dev, launches, checks,
+                           np.random.default_rng([args.seed, 7]))
+    tuning_path(t, tw, np.random.default_rng([args.seed, 23]), dev)
     schema_path(rng, dev, raw_restore_rate)
     elastic_path(args.seed, dev)
     serving_path(rng, dev, args.seed)

@@ -7,11 +7,11 @@ of ``2**shard_bits`` shards, every shard on the table's one device) with
 raw i32 values or a **value schema**, the paper-reactive resize rule or an
 elastic :class:`~repro_torch.core.policy.ResizePolicy`, and saves and
 restores tables through the JAX package's image format
-(``core/snapshot.py``); measured tile autotuning raises
-``NotImplementedError`` until it is ported. ``backend`` is ``"auto"``,
-``"plain"`` or ``"cuda"`` (see ``kernels/plan.py``); the spec resolves its
-kernel plan once per device type, when the first table on it is built, and
-every geometry has one.
+(``core/snapshot.py``). ``backend`` is ``"auto"``, ``"plain"`` or
+``"cuda"`` and ``autotune`` is ``"off"`` or ``"measured"`` (the kernels'
+launch shapes timed on the device, see ``kernels/plan.py`` and
+``kernels/tuning.py``); the spec resolves its kernel plan once per device
+type, when the first table on it is built, and every geometry has one.
 
 Value schemas
 -------------
@@ -139,7 +139,7 @@ class TableSpec:
 
     # --- backend ---------------------------------------------------------
     backend: str = "auto"        # "auto" | "plain" | "cuda"
-    autotune: str = "off"        # "off" (the tile autotuner is not ported)
+    autotune: str = "off"        # "off" | "measured" (kernels/tuning.py)
 
     # --- value schema ----------------------------------------------------
     value_schema: Optional[Tuple[ValueField, ...]] = None
@@ -154,10 +154,6 @@ class TableSpec:
                              f"{PLACEMENTS}")
         if self.placement == "sharded" and not 1 <= self.shard_bits <= 8:
             raise ValueError(f"shard_bits {self.shard_bits} outside [1, 8]")
-        if self.autotune != "off":
-            raise NotImplementedError(
-                f"autotune={self.autotune!r} is not ported to the PyTorch "
-                "package yet (no measured autotuning)")
         if self.resize_policy is not None:
             if not isinstance(self.resize_policy, ResizePolicy):
                 raise TypeError(f"resize_policy must be a ResizePolicy, "
@@ -169,10 +165,18 @@ class TableSpec:
                            normalize_schema(self.value_schema))
         if self.slab_capacity and self.value_schema is None:
             raise ValueError("slab_capacity given without a value_schema")
-        # construction-time validation of the core knobs and the backend
+        # construction-time validation of the core knobs and the backend;
+        # plans resolve when first asked for, so that a measured plan times
+        # its sweep only on the device type it is resolved for
         self.table_config()
-        from repro_torch.kernels.plan import resolve_plan
-        object.__setattr__(self, "_plans", {"cpu": resolve_plan(self, "cpu")})
+        from repro_torch.kernels.plan import AUTOTUNE_POLICIES, SPEC_BACKENDS
+        if self.backend not in SPEC_BACKENDS:
+            raise ValueError(f"backend {self.backend!r} not in "
+                             f"{SPEC_BACKENDS}")
+        if self.autotune not in AUTOTUNE_POLICIES:
+            raise ValueError(f"autotune {self.autotune!r} not in "
+                             f"{AUTOTUNE_POLICIES}")
+        object.__setattr__(self, "_plans", {})
 
     def plan(self, device_type: str):
         """The :class:`~repro_torch.kernels.plan.KernelPlan` for tables on

@@ -14,9 +14,10 @@
 // (4 MiB at dmax = 20, which stays in the 50 MB L2), the 8-key row of its
 // bucket and, only after the match, one value. It is now three:
 // row_probe.cuh reads the row's values beside its keys and picks the match
-// in registers, and the 64-thread blocks spread a lookup over 72 SMs
-// instead of 18. The first two steps stay in series: the route needs the
-// query's hash, the row needs the route.
+// in registers, and the 64-thread blocks (the default; the block size is
+// a launch argument) spread a lookup over 72 SMs instead of 18. The first
+// two steps stay in series: the route needs the query's hash, the row
+// needs the route.
 //
 // Contract (kernels/lookup.py::fused_probe_plain): found = any slot of the
 // routed row equals the query, and an EMPTY query never matches; val = the
@@ -30,8 +31,8 @@
 
 namespace {
 
-template <int kVec>
-__global__ void __launch_bounds__(repro_torch::kProbeThreads)
+template <int kThreads, int kVec>
+__global__ void __launch_bounds__(kThreads)
 fused_probe_kernel(
     const int32_t* __restrict__ dir, const int32_t* __restrict__ queries,
     const int32_t* __restrict__ pool_keys,
@@ -49,16 +50,17 @@ fused_probe_kernel(
 
 }  // namespace
 
-// Pointers are device pointers; stream is a cudaStream_t. Returns the
-// cudaError_t of the launch (0 = cudaSuccess).
+// Pointers are device pointers; threads is the block size (32, 64, 128 or
+// 256); stream is a cudaStream_t. Returns the cudaError_t of the launch
+// (0 = cudaSuccess), or cudaErrorInvalidValue for another block size.
 extern "C" int fused_probe_launch(const void* dir, const void* queries,
                                   const void* pool_keys, const void* pool_vals,
                                   void* found, void* vals, int n, int B,
                                   int dmax, int hash_id, int hash_shift,
-                                  void* stream) {
+                                  int threads, void* stream) {
+  if (!repro_torch::dispatch_threads(threads, [](auto) {}))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int blocks = (n + repro_torch::kProbeThreads - 1) /
-                     repro_torch::kProbeThreads;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* d = static_cast<const int32_t*>(dir);
   const auto* q = static_cast<const int32_t*>(queries);
@@ -66,10 +68,14 @@ extern "C" int fused_probe_launch(const void* dir, const void* queries,
   const auto* pv = static_cast<const int32_t*>(pool_vals);
   auto* f = static_cast<uint8_t*>(found);
   auto* v = static_cast<int32_t*>(vals);
-  repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
-    fused_probe_kernel<decltype(vec)::value>
-        <<<blocks, repro_torch::kProbeThreads, 0, s>>>(
-            d, q, pk, pv, f, v, n, B, dmax, hash_id, hash_shift);
+  repro_torch::dispatch_threads(threads, [&](auto t) {
+    constexpr int kThreads = decltype(t)::value;
+    const int blocks = (n + kThreads - 1) / kThreads;
+    repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
+      fused_probe_kernel<kThreads, decltype(vec)::value>
+          <<<blocks, kThreads, 0, s>>>(d, q, pk, pv, f, v, n, B, dmax,
+                                       hash_id, hash_shift);
+    });
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,10 @@
 // here the ops come in lane order, unsorted, and the kernel groups them
 // itself.
 //
-// One thread block of 512 threads works through the batch in 4,096-lane
-// chunks (eight lanes a thread), one chunk after another in lane order, with
+// One thread block of 512 threads works through the batch in chunks of
+// 1,024, 2,048 or 4,096 lanes (2, 4 or 8 lanes a thread; the chunk is a
+// launch argument, 4,096 by default), one chunk after another in lane
+// order, with
 // the grouping core it shares with fused_apply.cu (lane_groups.cuh): the
 // chunk's ops go to shared memory with coalesced loads; a stable block
 // radix sort on each active op's bucket id (as many bits as the pool's row
@@ -45,10 +47,11 @@ namespace {
 using repro_torch::is_update;
 
 constexpr int kThreads = 512;
-constexpr int kItems = 8;  // lanes a thread: 4,096-lane chunks
-using Groups = repro_torch::LaneGroups<kThreads, kItems>;
 
-template <class Row>
+// kItems lanes a thread: chunks of 512 * kItems lanes. A chunk sorts all of
+// its lanes, padding included, and its shared memory (7 words a lane plus
+// the sort's storage) shrinks with it.
+template <int kItems, class Row>
 __global__ void __launch_bounds__(kThreads, 1)
     grouped_apply_kernel(const int32_t* __restrict__ kinds,
                          const int32_t* __restrict__ keys,
@@ -58,8 +61,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                          int32_t* __restrict__ pool_vals,
                          int8_t* __restrict__ status, int m, int B,
                          int key_bits) {
+  using Groups = repro_torch::LaneGroups<kThreads, kItems>;
   extern __shared__ __align__(16) unsigned char smem[];
-  auto& s = *reinterpret_cast<Groups::Shared*>(smem);
+  auto& s = *reinterpret_cast<typename Groups::Shared*>(smem);
 
   for (int base = 0; base < m; base += Groups::kChunk) {
     const int n = min(Groups::kChunk, m - base);
@@ -90,38 +94,58 @@ __global__ void __launch_bounds__(kThreads, 1)
       s.run_key[i] = group;
     }
     __syncthreads();
-    Groups::apply_runs<Row>(s, key_bits, B, pool_keys, pool_vals);
+    Groups::template apply_runs<Row>(s, key_bits, B, pool_keys, pool_vals);
     for (int i = threadIdx.x; i < n; i += kThreads)
       status[base + i] = static_cast<int8_t>(s.status[i]);
     __syncthreads();  // the next chunk overwrites the shared arrays
   }
 }
 
-template <class Row>
+template <int kItems, class Row>
 cudaError_t launch(const int32_t* kd, const int32_t* ky, const int32_t* vl,
                    const int32_t* bd, int32_t* pk, int32_t* pv, int8_t* st,
                    int m, int B, int key_bits, cudaStream_t s) {
-  constexpr size_t bytes = sizeof(Groups::Shared);
-  const cudaError_t e =
-      repro_torch::open_shared_memory(grouped_apply_kernel<Row>, bytes);
+  constexpr size_t bytes =
+      sizeof(typename repro_torch::LaneGroups<kThreads, kItems>::Shared);
+  const cudaError_t e = repro_torch::open_shared_memory(
+      grouped_apply_kernel<kItems, Row>, bytes);
   if (e != cudaSuccess) return e;
-  grouped_apply_kernel<Row><<<1, kThreads, bytes, s>>>(kd, ky, vl, bd, pk, pv,
-                                                       st, m, B, key_bits);
+  grouped_apply_kernel<kItems, Row><<<1, kThreads, bytes, s>>>(
+      kd, ky, vl, bd, pk, pv, st, m, B, key_bits);
   return cudaGetLastError();
+}
+
+// The row type for B: keys in registers up to 32 slots, else in memory.
+template <int kItems>
+cudaError_t launch_rows(const int32_t* kd, const int32_t* ky,
+                        const int32_t* vl, const int32_t* bd, int32_t* pk,
+                        int32_t* pv, int8_t* st, int m, int B, int key_bits,
+                        cudaStream_t s) {
+  if (B <= 8)
+    return launch<kItems, repro_torch::RegisterRow<8>>(kd, ky, vl, bd, pk, pv,
+                                                       st, m, B, key_bits, s);
+  if (B <= 32)
+    return launch<kItems, repro_torch::RegisterRow<32>>(
+        kd, ky, vl, bd, pk, pv, st, m, B, key_bits, s);
+  return launch<kItems, repro_torch::MemoryRow>(kd, ky, vl, bd, pk, pv, st, m,
+                                                B, key_bits, s);
 }
 
 }  // namespace
 
 // Pointers are device pointers; the ops are i32[m] in any order, each active
 // op's bucket id names a pool row below `rows`; the pools are [rows, B]
-// int32 and are updated in place; status is int8[m]; stream is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for B < 1 or rows < 1.
+// int32 and are updated in place; status is int8[m]; chunk is the lanes a
+// chunk (1,024, 2,048 or 4,096); stream is a cudaStream_t. Returns the
+// cudaError_t of the launch (0 = cudaSuccess), or cudaErrorInvalidValue for
+// another chunk, B < 1 or rows < 1.
 extern "C" int grouped_apply_launch(const void* kinds, const void* keys,
                                     const void* values, const void* bucket_ids,
                                     void* pool_keys, void* pool_vals,
                                     void* status, int m, int B, int rows,
-                                    void* stream) {
+                                    int chunk, void* stream) {
+  if (chunk != 1024 && chunk != 2048 && chunk != 4096)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return 0;
   if (B < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   // every bucket id is below rows < 2**key_bits, so below the idle key's
@@ -137,14 +161,11 @@ extern "C" int grouped_apply_launch(const void* kinds, const void* keys,
   auto* pv = static_cast<int32_t*>(pool_vals);
   auto* st = static_cast<int8_t*>(status);
   cudaError_t e;
-  if (B <= 8)
-    e = launch<repro_torch::RegisterRow<8>>(kd, ky, vl, bd, pk, pv, st, m, B,
-                                            key_bits, s);
-  else if (B <= 32)
-    e = launch<repro_torch::RegisterRow<32>>(kd, ky, vl, bd, pk, pv, st, m,
-                                             B, key_bits, s);
+  if (chunk == 1024)
+    e = launch_rows<2>(kd, ky, vl, bd, pk, pv, st, m, B, key_bits, s);
+  else if (chunk == 2048)
+    e = launch_rows<4>(kd, ky, vl, bd, pk, pv, st, m, B, key_bits, s);
   else
-    e = launch<repro_torch::MemoryRow>(kd, ky, vl, bd, pk, pv, st, m, B,
-                                       key_bits, s);
+    e = launch_rows<8>(kd, ky, vl, bd, pk, pv, st, m, B, key_bits, s);
   return static_cast<int>(e);
 }

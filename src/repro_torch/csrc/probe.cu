@@ -15,8 +15,9 @@
 // trips: the bucket id and the query (two loads in one step), the key row,
 // then one value. It is now two: the row probe (row_probe.cuh, shared with
 // fused_probe.cu) reads the values beside the keys, and the launch uses the
-// same 64-thread blocks. At 36,864 queries the value sectors of misses
-// cost what the round trip saves: the wider grid alone gains warm, and the
+// same blocks (64 threads by default, a launch argument). At 36,864
+// queries the value sectors of misses cost what the round trip saves: the
+// wider grid alone gains warm, and the
 // kernel is slower cold than with the value read after the match
 // (PERF.md §6).
 //
@@ -33,8 +34,8 @@
 
 namespace {
 
-template <int kVec>
-__global__ void __launch_bounds__(repro_torch::kProbeThreads)
+template <int kThreads, int kVec>
+__global__ void __launch_bounds__(kThreads)
 probe_kernel(
     const int32_t* __restrict__ bucket_ids,
     const int32_t* __restrict__ queries, const int32_t* __restrict__ pool_keys,
@@ -48,15 +49,17 @@ probe_kernel(
 
 }  // namespace
 
-// Pointers are device pointers; every bucket id names a pool row; stream is
-// a cudaStream_t. Returns the cudaError_t of the launch (0 = cudaSuccess).
+// Pointers are device pointers; every bucket id names a pool row; threads
+// is the block size (32, 64, 128 or 256); stream is a cudaStream_t. Returns
+// the cudaError_t of the launch (0 = cudaSuccess), or cudaErrorInvalidValue
+// for another block size.
 extern "C" int probe_launch(const void* bucket_ids, const void* queries,
                             const void* pool_keys, const void* pool_vals,
                             void* found, void* vals, int n, int B,
-                            void* stream) {
+                            int threads, void* stream) {
+  if (!repro_torch::dispatch_threads(threads, [](auto) {}))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int blocks = (n + repro_torch::kProbeThreads - 1) /
-                     repro_torch::kProbeThreads;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* b = static_cast<const int32_t*>(bucket_ids);
   const auto* q = static_cast<const int32_t*>(queries);
@@ -64,10 +67,13 @@ extern "C" int probe_launch(const void* bucket_ids, const void* queries,
   const auto* pv = static_cast<const int32_t*>(pool_vals);
   auto* f = static_cast<uint8_t*>(found);
   auto* v = static_cast<int32_t*>(vals);
-  repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
-    probe_kernel<decltype(vec)::value>
-        <<<blocks, repro_torch::kProbeThreads, 0, s>>>(b, q, pk, pv, f, v, n,
-                                                       B);
+  repro_torch::dispatch_threads(threads, [&](auto t) {
+    constexpr int kThreads = decltype(t)::value;
+    const int blocks = (n + kThreads - 1) / kThreads;
+    repro_torch::dispatch_rows(pk, pv, B, [&](auto vec) {
+      probe_kernel<kThreads, decltype(vec)::value>
+          <<<blocks, kThreads, 0, s>>>(b, q, pk, pv, f, v, n, B);
+    });
   });
   return static_cast<int>(cudaGetLastError());
 }

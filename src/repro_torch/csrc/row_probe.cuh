@@ -19,9 +19,11 @@
 //   At the wide path's 36,864 queries those extra sectors cost as much as
 //   the round trip saves (warm), or more (cold): there the sector rate,
 //   not the chain, sets the time (PERF.md §6).
-// - kProbeThreads is small so that a main-path lookup of 4,608 queries
-//   runs as 72 blocks on 72 of the 132 SMs, not 18 blocks on 18: each SM
-//   then keeps fewer queries' round trips in flight at once.
+// - The block is small by default (64 threads) so that a main-path lookup
+//   of 4,608 queries runs as 72 blocks on 72 of the 132 SMs, not 18 blocks
+//   on 18: each SM then keeps fewer queries' round trips in flight at once.
+//   The block size is a launch argument (dispatch_threads, below), so that
+//   the plan can measure it per geometry (kernels/tuning.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,12 +35,35 @@
 
 namespace repro_torch {
 
-// Threads a block for both probes: 64 spreads a main-path lookup over 72
-// SMs. Measured at 32, 64, 128 and 256 on the main table
-// (tools/probe_timing.py, PERF.md §6): warm, 64 ties 32 at 4,608 queries
-// and is the fastest at 36,864, and 256 is 0.2 us slower at both; cold, all
-// four within 0.1 us.
-constexpr int kProbeThreads = 64;
+// Threads a block for both probes, chosen at launch: 32, 64, 128 or 256.
+// The plan's default is 64, which spreads a main-path lookup over 72 SMs.
+// Measured at all four on the main table (tools/probe_timing.py, PERF.md
+// §6): warm, 64 ties 32 at 4,608 queries and is the fastest at 36,864, and
+// 256 is 0.2 us slower at both; cold, all four within 0.1 us.
+//
+// Calls launch(std::integral_constant<int, kThreads>{}) for threads ==
+// kThreads and returns true; returns false, launching nothing, for any
+// other value (the launchers then return cudaErrorInvalidValue: a block
+// size is never rounded to a neighbour).
+template <class Launch>
+inline bool dispatch_threads(int threads, Launch&& launch) {
+  switch (threads) {
+    case 32:
+      launch(std::integral_constant<int, 32>{});
+      return true;
+    case 64:
+      launch(std::integral_constant<int, 64>{});
+      return true;
+    case 128:
+      launch(std::integral_constant<int, 128>{});
+      return true;
+    case 256:
+      launch(std::integral_constant<int, 256>{});
+      return true;
+    default:
+      return false;
+  }
+}
 
 // kVec > 0: B == 4 * kVec and both pools' bases are 16-byte aligned (the
 // launcher checks), so a row's keys and its values are kVec int4 loads each,

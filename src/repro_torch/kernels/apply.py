@@ -9,11 +9,13 @@ tensors. It replaces the Pallas TPU kernel
 of at most 1024 lanes, rows of at most 32 slots).
 
 ``grouped_apply`` launches ``csrc/grouped_apply.cu`` (one thread block
-working through the batch in 4,096-lane chunks, in lane order) for CUDA
-tensors and runs ``grouped_apply_plain`` for CPU tensors. It replaces the
-Pallas TPU kernel ``repro/kernels/apply.py::grouped_apply``, with the
-contract of ``repro/kernels/ref.py::apply_ref``, takes its ops in any order,
-and serves the transactions beyond the fused kernel's bound
+working through the batch chunk after chunk, in lane order; ``chunk`` lanes
+a chunk, one of ``kernels/tuning.py::CHUNKS``, 4,096 unless the table's
+plan says otherwise, and anything else raises ``ValueError`` before any
+launch) for CUDA tensors and runs ``grouped_apply_plain`` for CPU tensors.
+It replaces the Pallas TPU kernel ``repro/kernels/apply.py::grouped_apply``,
+with the contract of ``repro/kernels/ref.py::apply_ref``, takes its ops in
+any order, and serves the transactions beyond the fused kernel's bound
 (``kernels/plan.py``). Both kernels group a chunk's ops by bucket with one
 core (``csrc/lane_groups.cuh``: a stable block radix sort in shared
 memory) and share one combine step (``csrc/bucket_row.cuh``), as both plain
@@ -34,6 +36,7 @@ from repro_torch.core.table import wave_combine
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (check_i32_vector, check_pools,
                                          check_tensor)
+from repro_torch.kernels.tuning import TileConfig, check_chunk
 
 # status codes shared with the kernel (ST_FROZEN == table.FROZEN)
 ST_IDLE = -1
@@ -47,13 +50,13 @@ ST_FULL = -3
 # registers
 MAX_LANES = 1024
 MAX_BUCKET_SIZE = 32
-# lanes per chunk of csrc/grouped_apply.cu (a batch wider than this is
-# worked through chunk after chunk)
-GROUPED_CHUNK = 4096
+# lanes per chunk of csrc/grouped_apply.cu unless the plan says otherwise
+# (a batch wider than its chunk is worked through chunk after chunk)
+GROUPED_CHUNK = TileConfig().chunk
 
 _FUSED_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
-_GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+_GROUPED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                      + [ctypes.c_void_p])
 
 
@@ -135,13 +138,13 @@ fused_apply.launches = 0
 
 
 def grouped_apply_plain(kinds, keys, values, bucket_ids, pool_keys,
-                        pool_vals):
+                        pool_vals, *, chunk: int = GROUPED_CHUNK):
     """Plain version of the grouped apply, the contract of ``apply_ref``:
     ops apply in index order, in any input order. It is the plain
     transaction's wave loop (``core/table.py::wave_combine``) with no bucket
     frozen; within a bucket the wave order is index order, and ops on
     distinct buckets commute. The trash row takes the idle lanes'
-    writes."""
+    writes; ``chunk`` is ignored."""
     update = (kinds == 1) | (kinds == 2)
     frozen = torch.zeros(pool_keys.shape[0], dtype=torch.bool,
                          device=kinds.device)
@@ -156,8 +159,10 @@ def grouped_apply_plain(kinds, keys, values, bucket_ids, pool_keys,
 
 def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
                   values: torch.Tensor, bucket_ids: torch.Tensor,
-                  pool_keys: torch.Tensor, pool_vals: torch.Tensor):
-    """Combining apply of ops in any order, any batch width.
+                  pool_keys: torch.Tensor, pool_vals: torch.Tensor, *,
+                  chunk: int = GROUPED_CHUNK):
+    """Combining apply of ops in any order, any batch width, ``chunk``
+    lanes a chunk.
 
     kinds i32[M] (0 = idle, 1 = insert/upsert, 2 = delete), keys / values
     i32[M], bucket_ids i32[M] (the pool row of each op, below P); pool_keys
@@ -173,6 +178,7 @@ def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
     (pool_keys, pool_vals, status i8[M]) with status in {ST_TRUE,
     ST_FALSE, ST_FULL, ST_IDLE}. The kernel never writes the trash row;
     the plain version may."""
+    check_chunk(chunk)
     dev = kinds.device
     m = kinds.shape[0]
     check_pools(pool_keys, pool_vals, dev)
@@ -191,7 +197,7 @@ def grouped_apply(kinds: torch.Tensor, keys: torch.Tensor,
     rc = launch(kinds.data_ptr(), keys.data_ptr(), values.data_ptr(),
                 bucket_ids.data_ptr(), pool_keys.data_ptr(),
                 pool_vals.data_ptr(), status.data_ptr(), m,
-                pool_keys.shape[1], pool_keys.shape[0],
+                pool_keys.shape[1], pool_keys.shape[0], int(chunk),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "grouped_apply")
     grouped_apply.launches += 1

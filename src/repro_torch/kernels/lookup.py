@@ -14,7 +14,10 @@ tensors. It replaces the Pallas TPU kernel ``repro/kernels/lookup.py::probe``
 and serves the tables whose plan routes lookups outside the fused kernel
 (``kernels/plan.py``). Both kernels share one row probe
 (``csrc/row_probe.cuh``), as both plain versions share
-``core/table.py::probe_rows``.
+``core/table.py::probe_rows``, and one launch shape: ``block`` threads a
+block, one of ``kernels/tuning.py::BLOCKS`` (64 unless the table's plan
+says otherwise). A block size outside that set raises ``ValueError``
+before any launch; the plain versions take the argument and ignore it.
 """
 from __future__ import annotations
 
@@ -26,11 +29,14 @@ from repro_torch.core import table as T
 from repro_torch.core.hashing import HASH_IDS, hash_fn
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_i32_vector, check_pools
+from repro_torch.kernels.tuning import TileConfig, check_block
 
-_FUSED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_FUSED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
-_PROBE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+_PROBE_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
+# threads a probe block unless the plan says otherwise
+DEFAULT_BLOCK = TileConfig().block
 
 
 def _outputs(n: int, device):
@@ -39,21 +45,26 @@ def _outputs(n: int, device):
 
 
 def fused_probe_plain(directory, queries, pool_keys, pool_vals, *, dmax: int,
-                      hash_name: str = "fmix32", hash_shift: int = 0):
-    """Plain version of the kernel: same contract, same results."""
+                      hash_name: str = "fmix32", hash_shift: int = 0,
+                      block: int = DEFAULT_BLOCK):
+    """Plain version of the kernel: same contract, same results (``block``
+    is ignored)."""
     return T.probe(directory, queries, pool_keys, pool_vals, dmax=dmax,
                    hash=hash_fn(hash_name, hash_shift))
 
 
 def fused_probe(directory: torch.Tensor, queries: torch.Tensor,
                 pool_keys: torch.Tensor, pool_vals: torch.Tensor, *,
-                dmax: int, hash_name: str = "fmix32", hash_shift: int = 0):
+                dmax: int, hash_name: str = "fmix32", hash_shift: int = 0,
+                block: int = DEFAULT_BLOCK):
     """Single-kernel lookup: hash, directory route and bucket probe fused.
 
     directory i32[2**dmax] (entry → pool row), queries i32[N], pool_keys /
-    pool_vals i32[R, B] (the table passes its pools without the trash row).
-    Returns (found bool[N], vals i32[N], -1 for misses); an ``EMPTY_KEY``
-    query is never found. Directory entries must name rows below R."""
+    pool_vals i32[R, B] (the table passes its pools without the trash row),
+    ``block`` threads a block. Returns (found bool[N], vals i32[N], -1 for
+    misses); an ``EMPTY_KEY`` query is never found. Directory entries must
+    name rows below R."""
+    check_block(block)
     if directory.shape != (1 << dmax,):
         raise ValueError(f"directory shape {tuple(directory.shape)} != "
                          f"(2**{dmax},)")
@@ -73,7 +84,7 @@ def fused_probe(directory: torch.Tensor, queries: torch.Tensor,
     rc = launch(directory.data_ptr(), queries.data_ptr(),
                 pool_keys.data_ptr(), pool_vals.data_ptr(), found.data_ptr(),
                 vals.data_ptr(), queries.shape[0], pool_keys.shape[1], dmax,
-                HASH_IDS[hash_name], hash_shift,
+                HASH_IDS[hash_name], hash_shift, int(block),
                 torch.cuda.current_stream(queries.device).cuda_stream)
     _build.check(rc, "fused_probe")
     fused_probe.launches += 1
@@ -83,23 +94,27 @@ def fused_probe(directory: torch.Tensor, queries: torch.Tensor,
 fused_probe.launches = 0
 
 
-def probe_plain(bucket_ids, queries, pool_keys, pool_vals):
+def probe_plain(bucket_ids, queries, pool_keys, pool_vals, *,
+                block: int = DEFAULT_BLOCK):
     """Plain version of the pre-routed probe: same contract, same results
-    (``core/table.py::probe_rows``)."""
+    (``core/table.py::probe_rows``; ``block`` is ignored)."""
     return T.probe_rows(bucket_ids, queries, pool_keys, pool_vals)
 
 
 def probe(bucket_ids: torch.Tensor, queries: torch.Tensor,
-          pool_keys: torch.Tensor, pool_vals: torch.Tensor):
+          pool_keys: torch.Tensor, pool_vals: torch.Tensor, *,
+          block: int = DEFAULT_BLOCK):
     """Probe of pre-routed rows: query i looks in row ``bucket_ids[i]``.
 
     bucket_ids / queries i32[N]; pool_keys / pool_vals i32[R, B] (the table
-    passes its pools without the trash row), with every bucket id below R.
-    Returns (found bool[N], vals i32[N], -1 for misses): found where some
-    slot of the row equals the query, the first such slot's value. An
-    ``EMPTY_KEY`` query is never found, as in the Pallas kernel; where a
-    row holds a key twice (the table never does) the Pallas kernel sums
-    the matching values and this one takes the first."""
+    passes its pools without the trash row), with every bucket id below R;
+    ``block`` threads a block. Returns (found bool[N], vals i32[N], -1
+    for misses): found where some slot of the row equals the query, the
+    first such slot's value. An ``EMPTY_KEY`` query is never found, as in
+    the Pallas kernel; where a row holds a key twice (the table never
+    does) the Pallas kernel sums the matching values and this one takes
+    the first."""
+    check_block(block)
     dev = queries.device
     check_i32_vector("bucket_ids", bucket_ids, dev)
     check_i32_vector("queries", queries, dev, bucket_ids.shape[0])
@@ -113,7 +128,7 @@ def probe(bucket_ids: torch.Tensor, queries: torch.Tensor,
     rc = launch(bucket_ids.data_ptr(), queries.data_ptr(),
                 pool_keys.data_ptr(), pool_vals.data_ptr(), found.data_ptr(),
                 vals.data_ptr(), queries.shape[0], pool_keys.shape[1],
-                torch.cuda.current_stream(dev).cuda_stream)
+                int(block), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "probe")
     probe.launches += 1
     return found, vals

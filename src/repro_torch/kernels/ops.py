@@ -4,11 +4,13 @@
 ``"cuda"`` plan a lookup is one ``fused_probe`` launch, or a route in
 PyTorch and one ``probe`` launch; a write transaction is one
 ``fused_apply`` launch, or a route in PyTorch and one ``grouped_apply``
-launch on the ops in lane order. The bookkeeping around the
-kernels is shared: seq gating, occupancy counts from the kernel's
-statuses, the frozen / replay / NOP status overlays; ops the kernel
-reports ``ST_FULL`` re-enter the plain transaction, which runs the bounded
-split rounds — the paper's fast (ApplyWFOp) / slow (ResizeWF) structure.
+launch on the ops in lane order. The probes launch in the plan's lookup
+tiles and ``grouped_apply`` in its apply tiles (``kernels/tuning.py``).
+The bookkeeping around the kernels is shared: seq gating, occupancy
+counts from the kernel's statuses, the frozen / replay / NOP status
+overlays; ops the kernel reports ``ST_FULL`` re-enter the plain
+transaction, which runs the bounded split rounds — the paper's fast
+(ApplyWFOp) / slow (ResizeWF) structure.
 """
 from __future__ import annotations
 
@@ -22,17 +24,18 @@ from repro_torch.kernels.plan import KernelPlan
 
 
 def _kernel_lookup_impl(cfg: T.TableConfig, state: T.TableState, queries,
-                        fused: bool):
+                        fused: bool, block: int = klookup.DEFAULT_BLOCK):
     """Rule-A lookup through the fused probe, or through the route in
     PyTorch and the pre-routed probe (pools without the trash row; neither
-    kernel has a directory-depth bound)."""
+    kernel has a directory-depth bound), ``block`` threads a block."""
     if fused:
         return klookup.fused_probe(
             state.directory, queries, state.keys[:-1], state.vals[:-1],
             dmax=cfg.dmax, hash_name=cfg.hash_name,
-            hash_shift=cfg.hash_shift)
+            hash_shift=cfg.hash_shift, block=block)
     _, bid = T._route(cfg, state.directory, queries)
-    return klookup.probe(bid, queries, state.keys[:-1], state.vals[:-1])
+    return klookup.probe(bid, queries, state.keys[:-1], state.vals[:-1],
+                         block=block)
 
 
 def _count_applied(cfg, state, ops, status, bid, live, frozen_hit):
@@ -95,19 +98,21 @@ def _apply_batch_fused_impl(cfg: T.TableConfig, state: T.TableState,
 
 
 def _apply_batch_kernel_impl(cfg: T.TableConfig, state: T.TableState,
-                             ops: T.OpBatch):
-    """One write transaction through ``grouped_apply``: route, complete the
-    frozen-destination ops here (the kernel ignores freezing), apply the
-    ops in lane order with the frozen and replayed lanes masked to NOP (the
-    kernel groups them by bucket itself). The pools are updated in place:
-    ``state`` is consumed."""
+                             ops: T.OpBatch,
+                             chunk: int = kapply.GROUPED_CHUNK):
+    """One write transaction through ``grouped_apply``, ``chunk`` lanes a
+    chunk: route, complete the frozen-destination ops here (the kernel
+    ignores freezing), apply the ops in lane order with the frozen and
+    replayed lanes masked to NOP (the kernel groups them by bucket itself).
+    The pools are updated in place: ``state`` is consumed."""
     fresh, replay = _gate(state, ops)
     _, bid = T._route(cfg, state.directory, ops.key)
     frozen_hit = fresh & state.frozen[bid.long()]
     live = fresh & ~frozen_hit
     kinds = torch.where(live, ops.kind, T.NOP).to(torch.int32)
     pk, pv, status = kapply.grouped_apply(kinds, ops.key, ops.value, bid,
-                                          state.keys, state.vals)
+                                          state.keys, state.vals,
+                                          chunk=chunk)
     st = _count_applied(cfg, state._replace(keys=pk, vals=pv), ops, status,
                         bid, live, frozen_hit)
     return _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit,
@@ -116,18 +121,20 @@ def _apply_batch_kernel_impl(cfg: T.TableConfig, state: T.TableState,
 
 def plan_lookup(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
                 queries):
-    """Rule-A lookup under a resolved plan."""
+    """Rule-A lookup under a resolved plan, in its lookup tiles."""
     if plan.backend == "plain":
         return T.lookup(cfg, state, queries)
-    return _kernel_lookup_impl(cfg, state, queries, plan.fused_lookup)
+    return _kernel_lookup_impl(cfg, state, queries, plan.fused_lookup,
+                               block=plan.lookup_tiles.block)
 
 
 def plan_apply(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
                ops: T.OpBatch):
     """Combining transaction under a resolved plan: the fused kernel where
-    the plan allows, else the grouped kernel."""
+    the plan allows, else the grouped kernel in the plan's apply tiles."""
     if plan.backend == "plain":
         return T.apply_batch(cfg, state, ops)
     if plan.fused_apply:
         return _apply_batch_fused_impl(cfg, state, ops)
-    return _apply_batch_kernel_impl(cfg, state, ops)
+    return _apply_batch_kernel_impl(cfg, state, ops,
+                                    chunk=plan.apply_tiles.chunk)

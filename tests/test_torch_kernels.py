@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.hashing import EMPTY_KEY, hash_np
 from repro_torch.kernels import apply as tapply
 from repro_torch.kernels import lookup as tlookup
+from repro_torch.kernels import tuning
 
 try:
     import jax
@@ -688,3 +689,95 @@ def test_cuda_grouped_apply_equals_plain(cuda, P, B, m, fill, n_rows, key_hi,
                                                              ppv[:P]), r
         assert torch.equal(kpk[P], t(pk[P], cuda)), r   # trash row untouched
         assert torch.equal(kpv[P], t(pv[P], cuda)), r
+
+
+# ---------------------------------------------------------------------------
+# every launch shape (kernels/tuning.py) ≡ the plain versions (on the card)
+
+BLOCKS, CHUNKS = tuning.BLOCKS, tuning.CHUNKS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("case,B", [("random", 8), ("slots", 8),
+                                    ("slots", 32), ("keys_off16", 8),
+                                    ("empty", 8)])
+def test_cuda_probes_every_block_equal_plain(cuda, block, case, B):
+    """Both probes at every block size, on the vector and the slot-by-slot
+    row paths, over more queries than one block holds."""
+    dmax, P = 12, 1000
+    if case == "random":
+        rng = np.random.default_rng(block + B)
+        directory, q, pk, pv = (t(x, cuda) for x in probe_case(
+            rng, dmax, P, B, 5000))
+        bids = t(route(directory.cpu().numpy(), q.cpu().numpy(), dmax), cuda)
+    else:
+        directory, bids, q, pk, pv = row_case(case, B, dmax, P, cuda)
+    for name, first, kw in (("fused_probe", directory, dict(dmax=dmax)),
+                            ("probe", bids, {})):
+        kernel = getattr(tlookup, name)
+        plain = getattr(tlookup, f"{name}_plain")
+        before = kernel.launches
+        kf, kv = kernel(first, q, pk, pv, block=block, **kw)
+        pf, pv_ = plain(first, q, pk, pv, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(kf, pf) and torch.equal(kv, pv_), name
+        assert 0 < int(kf.sum()) < q.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("P,B,m,fill,n_rows,key_hi", [
+    (100, 8, 4096, 0.6, None, 60),
+    (64, 16, 3000, 0.8, 20, 60),
+    (32, 40, 500, 0.9, 8, 60),          # rows in memory
+    # every bucket's ops span the borders of every chunk size
+    (2000, 32, 3 * 4096 + 17, 0.3, 300, 20),
+    (16, 8, 2 * 4096 + 5, 0.3, 1, 20),  # every lane on one bucket
+])
+def test_cuda_grouped_apply_every_chunk_equals_plain(cuda, chunk, P, B, m,
+                                                     fill, n_rows, key_hi):
+    rng = np.random.default_rng(m + P + chunk)
+    _, _, pk, pv = fused_case(rng, 4, P, B, fill, 0.0)
+    rows = rng.choice(P, size=n_rows or P, replace=False)
+    kpk, kpv, ppk, ppv = (t(x, cuda) for x in (pk, pv, pk, pv))
+    for r in range(3):
+        ops = [t(x, cuda) for x in lane_order_ops(rng, m, rows, key_hi)]
+        before = tapply.grouped_apply.launches
+        _, _, kst = tapply.grouped_apply(*ops, kpk, kpv, chunk=chunk)
+        _, _, pst = tapply.grouped_apply_plain(*ops, ppk, ppv)
+        torch.cuda.synchronize()
+        assert tapply.grouped_apply.launches == before + 1
+        assert torch.equal(kst, pst), r
+        assert torch.equal(kpk[:P], ppk[:P]) and torch.equal(kpv[:P],
+                                                             ppv[:P]), r
+        assert torch.equal(kpk[P], t(pk[P], cuda)), r   # trash row untouched
+        assert torch.equal(kpv[P], t(pv[P], cuda)), r
+
+
+@pytest.mark.cuda
+def test_cuda_entry_points_reject_unknown_tiles(cuda):
+    """The C entry points refuse a tile outside their set with
+    cudaErrorInvalidValue (1) and launch nothing, even for an empty
+    batch; the wrappers refuse it before reaching them."""
+    from repro_torch.kernels import _build
+    z = torch.zeros(16, dtype=torch.int32, device=cuda)
+    pools = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    out = torch.zeros(16, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fused = _build.load("fused_probe.cu", "fused_probe_launch",
+                        tlookup._FUSED_ARGTYPES)
+    probe = _build.load("probe.cu", "probe_launch", tlookup._PROBE_ARGTYPES)
+    grouped = _build.load("grouped_apply.cu", "grouped_apply_launch",
+                          tapply._GROUPED_ARGTYPES)
+    p = [x.data_ptr() for x in (z, z, pools, pools, out, out)]
+    for n in (0, 16):
+        for threads, rc in ((48, 1), (512, 1), (0, 1), (64, 0)):
+            assert fused(*p, n, 4, 4, 0, 0, threads, stream) == rc
+            assert probe(*p, n, 4, threads, stream) == rc
+        for chunk, rc in ((512, 1), (3000, 1), (8192, 1), (4096, 0)):
+            assert grouped(*[z.data_ptr()] * 4, pools.data_ptr(),
+                           pools.data_ptr(), out.data_ptr(), n, 4, 4, chunk,
+                           stream) == rc
+    torch.cuda.synchronize()

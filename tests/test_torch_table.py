@@ -278,9 +278,9 @@ def test_grouped_plan_hands_grouped_apply_lane_order(monkeypatch):
     calls = []
     real = tops.kapply.grouped_apply
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append([a.clone() for a in args[:4]])
-        return real(*args)
+        return real(*args, **kw)
 
     monkeypatch.setattr(tops.kapply, "grouped_apply", spy)
     rng = np.random.default_rng(21)

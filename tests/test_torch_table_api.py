@@ -129,8 +129,13 @@ def test_spec_fields_match_jax_spec():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        TableSpec(**GEOM, autotune="measured")
+    # measured autotuning is ported (tests/test_torch_tuning.py): a spec
+    # asking for it resolves (the plain plan on the CPU has no kernel to
+    # tune), and an unknown policy raises
+    assert TableSpec(**GEOM, autotune="measured").plan("cpu").source == \
+        "heuristic"
+    with pytest.raises(ValueError, match="autotune"):
+        TableSpec(**GEOM, autotune="exhaustive")
     # sharded placement is ported (tests/test_torch_dist.py): the spec
     # resolves as the JAX spec does, and the router, its closed-loop driver
     # and the chaos harness take it (tests/test_torch_router.py,

@@ -9,8 +9,10 @@
   the port (``plain`` plan, on the CPU) at a reduced ``scale`` with no
   mismatch against both oracles, prove elasticity (depth decreases and
   policy merges), and report the same depth trajectory and policy counters
-  as the JAX replay (``backend="xla"``) of the same trace; every local
-  scenario in the registry replays through the port;
+  as the JAX replay (``backend="xla"``) of the same trace, run in a fresh
+  subprocess (XLA's CPU compiler has crashed in test workers that had
+  compiled many JAX programs before); every local scenario in the
+  registry replays through the port;
 * every scenario replays through a sharded port table with no mismatch
   against both oracles (aggregate ``dmax + shard_bits`` bits), also when
   the revives move it to another shard count or placement; and a sharded
@@ -20,6 +22,7 @@
   replay fails at its facade under an explicit-axis mesh).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -157,11 +160,9 @@ def test_churn_replay_matches_jax(name):
     assert rep["policy"]["splits"] > 0 and rep["policy"]["merges"] > 0
     assert rep["snapshot_restores"] == (2 if name == "snapshot_restore"
                                         else 0)
-    jspec, jtrace = jax_get_scenario(name, scale=JAX_SCALE)
-    jrep = jax_replay(jspec, jtrace, oracle="streaming",
-                      raise_on_mismatch=False)
+    jrep = _jax_subprocess(["--jax-churn", name])
     assert jrep["ok"]
-    assert _summary(rep) == _summary(jrep)
+    assert _plain(_summary(rep)) == jrep["summary"]
 
 
 @pytest.mark.parametrize("name", SCENARIOS)
@@ -206,6 +207,43 @@ def test_sharded_replay_reshards_at_revives(restore):
                        rep["mismatch_examples"])
     assert rep["snapshot_restores"] == 2
     assert rep["policy"]["splits"] > 0 and rep["policy"]["merges"] > 0
+
+
+def _plain(obj):
+    """``obj`` as JSON gives it back: tuples as lists, numpy scalars as
+    Python numbers."""
+    return json.loads(json.dumps(obj, default=lambda o: o.item()))
+
+
+def _jax_churn_summary(name, out_path):
+    """The JAX replay of churn scenario ``name`` at ``JAX_SCALE``
+    (``backend="xla"``, streaming oracle): ``ok`` and ``_summary``."""
+    jspec, jtrace = jax_get_scenario(name, scale=JAX_SCALE)
+    jrep = jax_replay(jspec, jtrace, oracle="streaming",
+                      raise_on_mismatch=False)
+    with open(out_path, "w") as f:
+        json.dump({"ok": bool(jrep["ok"]),
+                   "summary": _plain(_summary(jrep))}, f)
+    print("jax side OK")
+    return 0
+
+
+def _jax_subprocess(args, timeout=600):
+    """Run this file's JAX half (``--jax-...``) in a fresh process on the
+    CPU; returns the JSON it writes."""
+    import tempfile
+    here = os.path.abspath(__file__)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(here), "..", "src"))
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "jax.json")
+        proc = subprocess.run([sys.executable, here, *args, out], env=env,
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        assert proc.returncode == 0, (proc.stdout[-3000:],
+                                      proc.stderr[-3000:])
+        with open(out) as f:
+            return json.load(f)
 
 
 # the JAX side of the sharded replay comparison (subprocess)
@@ -270,5 +308,7 @@ def test_sharded_replay_matches_jax_chunked(tmp_path):
 
 
 if __name__ == "__main__":
+    if sys.argv[1] == "--jax-churn":
+        sys.exit(_jax_churn_summary(sys.argv[2], sys.argv[3]))
     assert sys.argv[1] == "--jax-sharded", sys.argv
     sys.exit(_jax_sharded_depths(sys.argv[2]))

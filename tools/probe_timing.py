@@ -1,33 +1,33 @@
 #!/usr/bin/env python3
-"""Time builds of the two lookup kernels against each other on one GPU.
+"""Time the two lookup kernels at every block size on one GPU.
 
     python3 tools/probe_timing.py [--baseline CSRC_DIR] [--seed N]
 
-Builds ``fused_probe.cu`` and ``probe.cu`` of this checkout with
-``kProbeThreads`` (``csrc/row_probe.cuh``) set to 32, 64, 128 and 256, in
-copies under ``build/probe_timing/``, and with ``--baseline`` also the two
-sources of another ``csrc`` directory (the parent commit unpacked with
-``git archive``, say). On the main path's table after its preload (dmax
-20, 2**20 rows of 8 slots, 2**19 keys inserted through the facade) it
-checks every build against the plain versions, then times each build's
-kernels warm (back to back) and cold (the L2 flushed before each launch)
-with ``chip_smoke.py``'s harnesses: ``fused_probe`` on the main path's
-4,608-query lookups, ``probe`` on the wide path's 36,864 pre-routed
-queries, half of them live keys. Every build is timed twice, the builds in
-one order and then in the reverse order. Last, for the committed block
-size, the vector row path against the slot-by-slot path (the same pools
-at a storage offset of one element) on tables of 4, 8, 16 and 32 slots a
-row (a depth-17 directory over the first 2**17 rows, half-full rows),
-twice in turns.
-One JSON line per reading, the card's ``nvidia-smi`` name and power limit
-first; exits non-zero without a card.
+Builds ``fused_probe.cu`` and ``probe.cu`` of this checkout once (their
+block size is a launch argument, ``kernels/tuning.py::BLOCKS``: 32, 64,
+128 and 256) and, with ``--baseline``, also the two sources of another
+``csrc`` directory (the parent commit unpacked with ``git archive``, say)
+into ``build/probe_timing/``. A baseline whose launchers take no block
+size (its own is a compile-time constant) is called without one; one that
+takes it is called at the default block. On the main path's table after
+its preload (dmax 20, 2**20 rows of 8 slots, 2**19 keys inserted through
+the facade) it checks every (build, block) against the plain versions,
+then times each warm (back to back) and cold (the L2 flushed before each
+launch) with ``chip_smoke.py``'s harnesses: ``fused_probe`` on the main
+path's 4,608-query lookups, ``probe`` on the wide path's 36,864 pre-routed
+queries, half of them live keys. Every (build, block) is timed twice, in
+one order and then in the reverse order. Last, at the default block size,
+the vector row path against the slot-by-slot path (the same pools at a
+storage offset of one element) on tables of 4, 8, 16 and 32 slots a row (a
+depth-17 directory over the first 2**17 rows, half-full rows), twice in
+turns. One JSON line per reading, the card's ``nvidia-smi`` name and power
+limit first; exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -42,60 +42,58 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 SOURCES = {"fused_probe": "fused_probe.cu", "probe": "probe.cu"}
-BLOCKS = (32, 64, 128, 256)
 OUT = ROOT / "build" / "probe_timing"
-THREADS_RE = re.compile(r"constexpr int kProbeThreads = (\d+);")
+# a launcher that takes the block size (this checkout's ABI)
+BLOCK_ARG_RE = re.compile(r"probe_launch\([^)]*int threads", re.S)
 
 
-def variant_dirs(baseline: Path | None) -> dict[str, Path]:
-    """{build name: csrc directory}: a copy of this checkout's sources per
-    block size, and the baseline's directory as it is."""
-    csrc = ROOT / "src" / "repro_torch" / "csrc"
-    dirs = {}
-    for n in BLOCKS:
-        d = OUT / f"src_t{n}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(csrc, d)
-        h = d / "row_probe.cuh"
-        text, subs = THREADS_RE.subn(f"constexpr int kProbeThreads = {n};",
-                                     h.read_text())
-        cs.check(subs == 1, "kProbeThreads not found in row_probe.cuh")
-        h.write_text(text)
-        dirs[f"t{n}"] = d
-    if baseline is not None:
-        dirs["baseline"] = baseline
-    return dirs
+class Build:
+    """One build's two entry points; ``blocks`` are the block sizes it
+    takes (``(None,)`` for a launcher without a block argument)."""
+
+    def __init__(self, lib_paths: dict[str, Path], block_arg: bool):
+        from repro_torch.kernels.lookup import (_FUSED_ARGTYPES,
+                                                _PROBE_ARGTYPES)
+        from repro_torch.kernels.tuning import BLOCKS
+        self.block_arg = block_arg
+        fused = _FUSED_ARGTYPES if block_arg else (
+            _FUSED_ARGTYPES[:-2] + _FUSED_ARGTYPES[-1:])
+        probe = _PROBE_ARGTYPES if block_arg else (
+            _PROBE_ARGTYPES[:-2] + _PROBE_ARGTYPES[-1:])
+        self.fused = ctypes.CDLL(str(lib_paths["fused_probe"])
+                                 ).fused_probe_launch
+        self.fused.argtypes, self.fused.restype = fused, ctypes.c_int
+        self.probe = ctypes.CDLL(str(lib_paths["probe"])).probe_launch
+        self.probe.argtypes, self.probe.restype = probe, ctypes.c_int
+        self.blocks = BLOCKS if block_arg else (None,)
 
 
-def build(dirs: dict[str, Path]) -> dict[str, dict[str, Path]]:
-    """One nvcc per (build, source), all started together."""
+def build(baseline: Path | None) -> dict[str, Build]:
+    """This checkout's kernels (``kernels/_build.py``) and the baseline's,
+    one nvcc per baseline source, all started together."""
     from repro_torch.kernels import _build
+    _build.build_all()
+    builds = {"this": Build({k: _build.build_dir() / f"{Path(src).stem}.so"
+                             for k, src in SOURCES.items()}, True)}
+    if baseline is None:
+        return builds
     nvcc = _build._nvcc()
     jobs, libs = [], {}
-    for name, d in dirs.items():
-        libs[name] = {}
-        for kernel, src in SOURCES.items():
-            lib = OUT / "lib" / name / f"{kernel}.so"
-            lib.parent.mkdir(parents=True, exist_ok=True)
-            cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-o", str(lib),
-                   str(d / src)]
-            jobs.append((lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-            libs[name][kernel] = lib
+    for kernel, src in SOURCES.items():
+        lib = OUT / "lib" / "baseline" / f"{kernel}.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(baseline), "-o", str(lib),
+               str(baseline / src)]
+        jobs.append((lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        libs[kernel] = lib
     for lib, proc in jobs:
         log = proc.communicate()[0]
         cs.check(proc.returncode == 0, f"nvcc failed for {lib}:\n{log}")
-    return libs
-
-
-def entry_points(lib_paths: dict[str, Path]):
-    from repro_torch.kernels.lookup import _FUSED_ARGTYPES, _PROBE_ARGTYPES
-    fused = ctypes.CDLL(str(lib_paths["fused_probe"])).fused_probe_launch
-    fused.argtypes, fused.restype = _FUSED_ARGTYPES, ctypes.c_int
-    probe = ctypes.CDLL(str(lib_paths["probe"])).probe_launch
-    probe.argtypes, probe.restype = _PROBE_ARGTYPES, ctypes.c_int
-    return fused, probe
+    builds["baseline"] = Build(libs, bool(BLOCK_ARG_RE.search(
+        (baseline / "probe.cu").read_text())))
+    return builds
 
 
 def main_table(rng, dev):
@@ -146,30 +144,31 @@ class Inputs:
         self.vals = torch.empty(8 * 4608, dtype=torch.int32, device=dev)
         self.stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def fused_call(self, fn, i):
+    def fused_call(self, b: Build, block, i):
         q = self.fused_q[i % 64]
-        rc = fn(self.directory.data_ptr(), q.data_ptr(), self.pk.data_ptr(),
-                self.pv.data_ptr(), self.found.data_ptr(),
-                self.vals.data_ptr(), q.shape[0], self.pk.shape[1],
-                cs.MAIN_SPEC["dmax"], 0, 0, self.stream)
+        rc = b.fused(self.directory.data_ptr(), q.data_ptr(),
+                     self.pk.data_ptr(), self.pv.data_ptr(),
+                     self.found.data_ptr(), self.vals.data_ptr(), q.shape[0],
+                     self.pk.shape[1], cs.MAIN_SPEC["dmax"], 0, 0,
+                     *([block] if b.block_arg else []), self.stream)
         cs.check(rc == 0, f"fused_probe launch: cudaError_t {rc}")
 
-    def probe_call(self, fn, i):
-        q, b = self.probe_q[i % 64], self.bids[i % 64]
-        rc = fn(b.data_ptr(), q.data_ptr(), self.pk.data_ptr(),
-                self.pv.data_ptr(), self.found.data_ptr(),
-                self.vals.data_ptr(), q.shape[0], self.pk.shape[1],
-                self.stream)
+    def probe_call(self, b: Build, block, i):
+        q, bid = self.probe_q[i % 64], self.bids[i % 64]
+        rc = b.probe(bid.data_ptr(), q.data_ptr(), self.pk.data_ptr(),
+                     self.pv.data_ptr(), self.found.data_ptr(),
+                     self.vals.data_ptr(), q.shape[0], self.pk.shape[1],
+                     *([block] if b.block_arg else []), self.stream)
         cs.check(rc == 0, f"probe launch: cudaError_t {rc}")
 
-    def check_against_plain(self, name, fused, probe):
+    def check_against_plain(self, name, b: Build, block):
         from repro_torch.kernels.lookup import fused_probe_plain, probe_plain
         for kernel, call, plain, args in (
-                ("fused_probe", lambda: self.fused_call(fused, 0),
+                ("fused_probe", lambda: self.fused_call(b, block, 0),
                  lambda: fused_probe_plain(
                      self.directory, self.fused_q[0], self.pk, self.pv,
                      dmax=cs.MAIN_SPEC["dmax"]), self.fused_q[0]),
-                ("probe", lambda: self.probe_call(probe, 0),
+                ("probe", lambda: self.probe_call(b, block, 0),
                  lambda: probe_plain(self.bids[0], self.probe_q[0], self.pk,
                                      self.pv), self.probe_q[0])):
             call()
@@ -180,15 +179,15 @@ class Inputs:
                      and torch.equal(self.vals[:n], pv),
                      f"{name} {kernel} disagrees with its plain version")
 
-    def times(self, fused, probe):
+    def times(self, b: Build, block):
         return {"fused_probe_warm_ms": cs.cuda_ms(
-                    lambda i: self.fused_call(fused, i), 200),
+                    lambda i: self.fused_call(b, block, i), 200),
                 "fused_probe_cold_ms": cs.cold_ms(
-                    lambda i: self.fused_call(fused, i), 200),
+                    lambda i: self.fused_call(b, block, i), 200),
                 "probe_warm_ms": cs.cuda_ms(
-                    lambda i: self.probe_call(probe, i), 200),
+                    lambda i: self.probe_call(b, block, i), 200),
                 "probe_cold_ms": cs.cold_ms(
-                    lambda i: self.probe_call(probe, i), 200)}
+                    lambda i: self.probe_call(b, block, i), 200)}
 
 
 def main() -> int:
@@ -203,26 +202,27 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
     cs.emit({"gpu": cs.smi_line(), "torch": torch.__version__})
-    libs = build(variant_dirs(args.baseline))
-    fns = {name: entry_points(paths) for name, paths in libs.items()}
-    committed = int(THREADS_RE.search(
-        (ROOT / "src/repro_torch/csrc/row_probe.cuh").read_text()).group(1))
+    from repro_torch.kernels.tuning import TileConfig
+    builds = build(args.baseline)
+    default = TileConfig().block
+    runs = [(name, block) for name, b in builds.items() for block in b.blocks]
 
     inputs = Inputs(rng, *main_table(rng, dev), dev)
-    for name, (fused, probe) in fns.items():
-        inputs.check_against_plain(name, fused, probe)
+    for name, block in runs:
+        inputs.check_against_plain(f"{name} block {block}", builds[name],
+                                   block)
     x = torch.zeros(1, device=dev)
     floor = {"launch_floor_ms": cs.cuda_ms(lambda i: x.add_(1), 200),
              "launch_floor_cold_ms": cs.cold_ms(lambda i: x.add_(1), 200)}
     cs.emit({"phase": "floor", **floor})
-    order = list(fns)
-    for rep, names in enumerate((order, order[::-1])):
-        for name in names:
-            cs.emit({"phase": "build_times", "build": name, "pass": rep,
-                     "committed": name == f"t{committed}",
-                     **inputs.times(*fns[name])})
+    for rep, order in enumerate((runs, runs[::-1])):
+        for name, block in order:
+            cs.emit({"phase": "build_times", "build": name, "block": block,
+                     "pass": rep, "default": name == "this"
+                     and block == default,
+                     **inputs.times(builds[name], block)})
 
-    fused, probe = fns[f"t{committed}"]
+    this = builds["this"]
     for B in (4, 8, 16, 32):
         directory, pk, pv, live = pools(rng, B, dev)
         paths = {"vector": (pk, pv),
@@ -231,11 +231,11 @@ def main() -> int:
         rows = {path: Inputs(np.random.default_rng(B), directory, k, v, live,
                              dev) for path, (k, v) in paths.items()}
         for path, r in rows.items():
-            r.check_against_plain(f"{path} B={B}", fused, probe)
+            r.check_against_plain(f"{path} B={B}", this, default)
         for rep, names in enumerate((list(rows), list(rows)[::-1])):
             for path in names:
                 cs.emit({"phase": "row_path", "B": B, "path": path,
-                         "pass": rep, **rows[path].times(fused, probe)})
+                         "pass": rep, **rows[path].times(this, default)})
         del directory, pk, pv, paths, rows
         torch.cuda.empty_cache()
     cs.emit({"ok": True, "gpu": cs.smi_line()})
