@@ -210,12 +210,30 @@ printing one JSON line:
     norm within 1e-3 relative of phase 16's one-device step; the state
     saved from the mesh and restored onto one device, equal leaf for leaf;
     ms per step (CUDA events) beside phase 16's, peak memory, no kernel
-    launched.
+    launched;
+19. the mesh table: a one-rank NCCL group started here
+    (``make_local_mesh(1, 1)``, destroyed at the end), the ``(1, 1)``
+    ``("data", "model")`` mesh of ``core/dist.py``'s collectives. (a)
+    Phase 13's 4-shard 512-lane table after its timed writes, laid onto
+    the mesh with ``Table.from_state``, and a stacked copy take one
+    stream: 32 rounds of the 90/10 mix (a 4,608-key lookup, a 512-op
+    write) and 16 timed write transactions (a synchronize each, mesh and
+    stacked alternating), statuses and lookups against the oracle, the
+    images equal each other's and the oracle's, the invariants on the
+    gathered state, the error flag clear; (b) the same with phase 13's
+    2-shard 4,096-lane table after its re-shard, 8 rounds of 36,864-key
+    lookups and 4,096-op writes (``probe`` and ``grouped_apply``); (c)
+    ``save_table`` from the mesh and ``restore_table`` onto it at 4,096
+    lanes, the image equal. The line: ms per write transaction on the
+    mesh and stacked, ms in the collectives per transaction (CUDA events
+    around each collective call), collective calls per facade call, and
+    the launches by kernel, one per local shard per kernel call.
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
 kernel's launches on the sharded, the LLM, the sharded serving, the
-training path, the launch tier and the mesh train step beside the main
-path's, and the probes' and ``grouped_apply``'s warm ms per launch shape)
+training path, the launch tier, the mesh train step and the mesh table
+beside the main path's, and the probes' and ``grouped_apply``'s warm ms
+per launch shape)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -3062,7 +3080,10 @@ def sharded_path(t_main, rng, dev):
     90/10 mix and ``SHARD_TIMED`` timed write transactions against the
     oracle, then a 4 -> 2 re-shard through the image into 4,096-lane
     transactions and ``SHARD2_ROUNDS`` rounds at that width; the launches
-    by kernel on each stage."""
+    by kernel on each stage. Returns the launches, and for phase 19 host
+    copies of the 4-shard table after its timed writes and of the 2-shard
+    table at the end, with their images and the never-inserted keys."""
+    from repro_torch.core import table as T
     from repro_torch.core.snapshot import extract_image
     from repro_torch.table_api import Table, TableSpec
 
@@ -3120,6 +3141,7 @@ def sharded_path(t_main, rng, dev):
               "sharded timed write statuses")
     depth4 = sharded_check(ts, cfg, oracle, "sharded")
     img4 = extract_image(ts)
+    state4 = T.TableState(*(x.cpu() for x in ts.state))
     want_k, want_v = image_of(oracle)
     check(np.array_equal(img4.keys, want_k)
           and np.array_equal(img4.values, want_v), "sharded image")
@@ -3214,8 +3236,12 @@ def sharded_path(t_main, rng, dev):
           "reduced": {"mixed_rounds": [ROUNDS, SHARD_ROUNDS],
                       "reshard_mixed_rounds": [WIDE_ROUNDS, SHARD2_ROUNDS]},
           "seconds": time.perf_counter() - t_phase, "ok": True})
+    keep = {"spec": spec, "state": state4, "seq": ts.seq, "image": img4,
+            "spec2": spec2, "state2": T.TableState(*(x.cpu()
+                                                     for x in t2.state)),
+            "seq2": t2.seq, "image2": img2, "absent": absent}
     return {k: pre_launches[k] + mix_launches[k] + restore_launches[k]
-            + mix2_launches[k] for k in pre_launches}
+            + mix2_launches[k] for k in pre_launches}, keep
 
 
 # ---------------------------------------------------------------------------
@@ -4557,6 +4583,291 @@ def mesh_train_alone(seed: int = 0):
                                                   TRAIN_BATCH, TRAIN_SEQ))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the mesh table — phase 13's tables on a (1, 1) NCCL mesh beside
+# their stacked copies
+
+
+MESH_ROUNDS = 32
+MESH_TIMED = 16
+MESH_WIDE_ROUNDS = 8
+
+
+class CollectiveTimer:
+    """Counts ``core/dist.py``'s collective calls while entered, and with
+    ``timing`` on puts CUDA events around each (the module's two
+    collective helpers wrapped in place, restored on exit)."""
+
+    def __init__(self):
+        self.calls, self.timing, self.events = 0, False, []
+
+    def __enter__(self):
+        from repro_torch.core import dist as D
+        self.saved = D._all_gather, D._all_reduce
+        D._all_gather, D._all_reduce = (self._wrap(f) for f in self.saved)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import dist as D
+        D._all_gather, D._all_reduce = self.saved
+
+    def _wrap(self, fn):
+        def call(*args, **kw):
+            self.calls += 1
+            if not self.timing:
+                return fn(*args, **kw)
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            out = fn(*args, **kw)
+            e[1].record()
+            self.events.append(e)
+            return out
+        return call
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def oracle_of(image) -> Oracle:
+    oracle = Oracle()
+    for k, v in zip(image.keys.tolist(), image.values.tolist()):
+        oracle.insert(k, v)
+    return oracle
+
+
+def mesh_check(tm, tsk, oracle, what):
+    """The mesh table against its stacked copy and the oracle: equal
+    images, the invariants on the mesh's gathered state and on its local
+    shards, the error flag clear on both."""
+    from repro_torch.core.invariants import check_invariants, full_view
+    from repro_torch.core.snapshot import extract_image
+    from repro_torch.core.table import to_numpy
+    img, img_s = extract_image(tm), extract_image(tsk)
+    want_k, want_v = image_of(oracle)
+    check(np.array_equal(img.keys, img_s.keys)
+          and np.array_equal(img.values, img_s.values)
+          and np.array_equal(img.keys, want_k)
+          and np.array_equal(img.values, want_v), f"{what}: images")
+    check_invariants(tm.config, full_view(tm))
+    check_invariants(tm.config, to_numpy(tm.state))     # the local shards
+    check(not bool(tm._error()) and not bool(tsk._error()),
+          f"{what}: error flag")
+    return img
+
+
+def alternate_rounds(tm, tsk, plan, dev):
+    """``run_rounds`` on the mesh table and on its stacked copy, one round
+    each in turn (a synchronize around every round): (mesh table, stacked
+    table, seconds of each, the mesh's launches, its collective calls)."""
+    secs = {"mesh": 0.0, "stacked": 0.0}
+    launches = dict.fromkeys(kernel_counts(), 0)
+    with CollectiveTimer() as ct:
+        for r in plan:
+            before = read_counts()
+            tm, s = run_rounds(tm, [r], dev)
+            secs["mesh"] += s
+            for k, v in read_counts().items():
+                launches[k] += v - before[k]
+            tsk, s = run_rounds(tsk, [r], dev)
+            secs["stacked"] += s
+    return tm, tsk, secs, launches, ct.calls
+
+
+def mesh_table_path(keep, rng, dev):
+    """Phase 13's tables (``keep``, host copies) on a one-rank NCCL mesh
+    started here and beside stacked copies of themselves: one stream
+    through both, checked against the oracle; ms per write transaction
+    for both, the collectives' ms and calls, launches per kernel; a save
+    from the mesh and a restore onto it. Returns the mesh's launches."""
+    import torch.distributed as dist
+    from repro_torch.core.snapshot import extract_image, load_image
+    from repro_torch.core.table import TableState
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.table_api import Table
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group is still up")
+    mesh = make_local_mesh(device_type=dev.type)
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"mesh backend {backend}")
+        spec, spec2 = keep["spec"], keep["spec2"]
+        absent = keep["absent"]
+        n_fresh = ((MESH_ROUNDS + MESH_TIMED) * spec.n_lanes
+                   + MESH_WIDE_ROUNDS * spec2.n_lanes) // 4
+        fresh, absent = iter(absent[:n_fresh].tolist()), absent[n_fresh:]
+
+        def tables(state, seq, s):
+            """The mesh table and its stacked copy, each on its own copy
+            of ``state`` on the card."""
+            def copy():
+                return TableState(*(x.to(dev, copy=True) for x in state))
+            tm = Table.from_state(s, copy(), seq=seq, mesh=mesh)
+            tsk = Table.from_state(s, copy(), seq=seq)
+            check(tm.mesh is mesh and tm.state.keys.shape[0] == s.n_shards
+                  and tsk.mesh is None, "mesh and stacked tables")
+            return tm, tsk
+
+        # (a) 4 shards at 512 lanes: the fused kernels. A first lookup,
+        # untimed and uncounted, sets up the NCCL communicators
+        tm, tsk = tables(keep["state"], keep["seq"], spec)
+        oracle = oracle_of(keep["image"])
+        rounds = traffic(rng, oracle, fresh, absent, MESH_ROUNDS,
+                         LOOKUPS_PER_ROUND, spec.n_lanes)
+        first_s = {}
+        for what, t in (("mesh", tm), ("stacked", tsk)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.lookup(torch.tensor(rounds[0][0], device=dev))
+            torch.cuda.synchronize()
+            first_s[what] = time.perf_counter() - t0
+        tm, tsk, mix_s, mix_launches, mix_calls = alternate_rounds(
+            tm, tsk, rounds, dev)
+        writes = traffic(rng, oracle, fresh, absent, MESH_TIMED, 0,
+                         spec.n_lanes)
+        # mesh and stacked alternate; only the mesh's launches are counted
+        # and only its collectives timed
+        secs = {"mesh": [], "stacked": []}
+        timed_launches = dict.fromkeys(kernel_counts(), 0)
+        with CollectiveTimer() as ct:
+            for *_, kinds, keys, values, status in writes:
+                args = [torch.tensor(x, device=dev)
+                        for x in (kinds, keys, values)]
+                for what in ("mesh", "stacked"):
+                    ct.timing = what == "mesh"
+                    before = read_counts()
+                    t0 = time.perf_counter()
+                    if what == "mesh":
+                        tm, res = tm.apply(*args)
+                    else:
+                        tsk, res = tsk.apply(*args)
+                    torch.cuda.synchronize()
+                    secs[what].append(time.perf_counter() - t0)
+                    if what == "mesh":
+                        for k, v in read_counts().items():
+                            timed_launches[k] += v - before[k]
+                    check(np.array_equal(res.status.cpu().numpy(), status),
+                          f"mesh table {what} timed write statuses")
+            coll_ms = ct.ms() / MESH_TIMED
+            timed_calls = ct.calls
+        mesh_check(tm, tsk, oracle, "mesh table (4 shards)")
+        del tm, tsk
+
+        # (b) 2 shards at 4,096 lanes: probe and grouped_apply
+        tm, tsk = tables(keep["state2"], keep["seq2"], spec2)
+        oracle2 = oracle_of(keep["image2"])
+        rounds2 = traffic(rng, oracle2, fresh, absent, MESH_WIDE_ROUNDS,
+                          WIDE_LOOKUPS, spec2.n_lanes)
+        tm, tsk, wide_s, wide_launches, wide_calls = alternate_rounds(
+            tm, tsk, rounds2, dev)
+        img2 = mesh_check(tm, tsk, oracle2, "mesh table (2 shards)")
+
+        # (c) a save from the mesh, a restore onto it
+        path = str(ROOT / "build" / "chip_smoke" / "mesh_table.npz")
+        t0 = time.perf_counter()
+        tm.save(path)
+        save_s = time.perf_counter() - t0
+        check(load_image(path).n_items == img2.n_items, "saved image")
+        del tm, tsk
+        zero_counts()
+        t0 = time.perf_counter()
+        back = Table.restore(path, spec2, dev, mesh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore_launches = read_counts()
+        img_b = extract_image(back)
+        check(np.array_equal(img_b.keys, img2.keys)
+              and np.array_equal(img_b.values, img2.values)
+              and img_b.header["policy_counts"]
+              == img2.header["policy_counts"], "restored mesh image")
+        restore_tx = back.seq
+        del back
+    finally:
+        dist.destroy_process_group()
+
+    s4, s2 = spec.n_shards, spec2.n_shards
+    for what, launches, want in (
+            ("mixed", mix_launches, {"fused_probe": s4 * MESH_ROUNDS,
+                                     "fused_apply": s4 * MESH_ROUNDS}),
+            ("timed", timed_launches, {"fused_apply": s4 * MESH_TIMED}),
+            ("wide mixed", wide_launches,
+             {"probe": s2 * MESH_WIDE_ROUNDS,
+              "grouped_apply": s2 * MESH_WIDE_ROUNDS}),
+            ("restore", restore_launches,
+             {"grouped_apply": s2 * restore_tx})):
+        got = {k: v for k, v in launches.items() if v}
+        check(got == want, f"mesh table {what} launches {launches}, want "
+              f"{want} (one per local shard per kernel call)")
+    mesh_ms = 1e3 * float(np.mean(secs["mesh"]))
+    stacked_ms = 1e3 * float(np.mean(secs["stacked"]))
+    n_look = MESH_ROUNDS * LOOKUPS_PER_ROUND
+    n_write = MESH_ROUNDS * spec.n_lanes
+    n_look2 = MESH_WIDE_ROUNDS * WIDE_LOOKUPS
+    n_write2 = MESH_WIDE_ROUNDS * spec2.n_lanes
+    launches = {k: mix_launches[k] + timed_launches[k] + wide_launches[k]
+                + restore_launches[k] for k in mix_launches}
+    emit({"phase": "mesh_table", "gpu": smi_line(),
+          "mesh": {"data": 1, "model": 1}, "backend": backend,
+          "n_shards": [s4, s2], "local_shards": [s4, s2],
+          "mixed_rounds": MESH_ROUNDS, "timed_write_transactions":
+          MESH_TIMED, "wide_rounds": MESH_WIDE_ROUNDS,
+          "status_mismatches": 0, "lookup_mismatches": 0,
+          "images_equal": True, "error_flag": False,
+          "ms_per_write_transaction": {"mesh": mesh_ms,
+                                       "stacked": stacked_ms},
+          "ms_per_write_transaction_max": {
+              k: 1e3 * max(v) for k, v in secs.items()},
+          "collective_ms_per_transaction": coll_ms,
+          "collective_share_of_transaction": coll_ms / mesh_ms,
+          "collective_calls_per_facade_call": {
+              "mixed_512": mix_calls / (2 * MESH_ROUNDS),
+              "write_512": timed_calls / MESH_TIMED,
+              "mixed_4096": wide_calls / (2 * MESH_WIDE_ROUNDS)},
+          "mixed_ops_per_s": {
+              "mesh": (n_look + n_write) / mix_s["mesh"],
+              "stacked": (n_look + n_write) / mix_s["stacked"],
+              "mesh_4096": (n_look2 + n_write2) / wide_s["mesh"],
+              "stacked_4096": (n_look2 + n_write2) / wide_s["stacked"]},
+          "first_lookup_s": first_s,
+          "launches_mixed": mix_launches, "launches_timed": timed_launches,
+          "launches_wide_mixed": wide_launches,
+          "launches_per_fused_call": {
+              k: mix_launches[k] / MESH_ROUNDS
+              for k in ("fused_probe", "fused_apply")},
+          "launches_per_unfused_call": {
+              k: wide_launches[k] / MESH_WIDE_ROUNDS
+              for k in ("probe", "grouped_apply")},
+          "save_s": save_s, "restore_s": restore_s,
+          "restore_items_per_s": img2.n_items / restore_s,
+          "restore_transactions": restore_tx,
+          "launches_restore": restore_launches,
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return launches
+
+
+def mesh_table_alone(seed: int = 0):
+    """Phases 13 and 19 by themselves: the kernels built, the main table
+    filled with ``PRELOAD`` keys in one insert (for phase 13's image),
+    ``sharded_path``, then ``mesh_table_path`` on its tables."""
+    from repro_torch.kernels import _build
+    from repro_torch.table_api import Table, TableSpec
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    rng = np.random.default_rng(seed)
+    t = Table.create(TableSpec(**MAIN_SPEC, backend="cuda"), dev)
+    keys = torch.tensor(distinct_keys(rng, PRELOAD), device=dev)
+    t0 = time.perf_counter()
+    t, _ = t.insert(keys, keys)
+    torch.cuda.synchronize()
+    LINES["main_path"] = {"mixed_ops_per_s": None, "preload_inserts_per_s":
+                          PRELOAD / (time.perf_counter() - t0)}
+    _, keep = sharded_path(t, rng, dev)
+    del t
+    return mesh_table_path(keep, np.random.default_rng([seed, 19]), dev)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4592,13 +4903,15 @@ def main() -> int:
     serving_path(rng, dev, args.seed)
     chaos_path(args.seed, dev)
     t = baselines_path(t, rng, dev)
-    sharded = sharded_path(t, rng, dev)
+    sharded, sharded_tables = sharded_path(t, rng, dev)
     llm = llm_serving_path(args.seed, dev)
     sharded_serving = sharded_serving_path(rng, dev, args.seed)
     training = training_path(t, dev, args.seed)
     launch_tier = launch_tier_path(dev, args.seed)
     mesh_train = mesh_train_path(dev, args.seed,
                                  LINES["training_path"]["smollm"])
+    mesh_table = mesh_table_path(sharded_tables,
+                                 np.random.default_rng([args.seed, 19]), dev)
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_llm"] = llm[k["name"]]
@@ -4606,6 +4919,7 @@ def main() -> int:
         k["launches_training"] = training[k["name"]]
         k["launches_launch_tier"] = launch_tier[k["name"]]
         k["launches_mesh_train"] = mesh_train[k["name"]]
+        k["launches_mesh_table"] = mesh_table[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

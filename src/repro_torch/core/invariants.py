@@ -31,7 +31,8 @@ def check_invariants(cfg: TableConfig, state, allow_error: bool = False):
 
     ``allow_error=True`` admits states whose error flag was set by a
     legitimate capacity/depth exhaustion; the structural invariants must
-    hold regardless. A stacked sharded state is checked per shard."""
+    hold regardless. A stacked sharded state is checked per shard: a mesh
+    table's ``state`` (its local shards), or :func:`full_view` (all)."""
     for s in _shards(_as_numpy(state)):
         _check_local(cfg, s, allow_error)
 
@@ -103,6 +104,20 @@ def _check_local(cfg: TableConfig, s: dict, allow_error: bool) -> None:
     if len(free):
         assert free.max() < int(s["nalloc"])
     assert live_ids.max(initial=-1) < int(s["nalloc"])
+
+
+def full_view(table) -> dict:
+    """The whole state of a ``Table`` handle as numpy arrays: a mesh
+    table's local shards gathered over its ``model`` group into the full
+    ``[n_shards]`` stack (every rank of the mesh calls this), any other
+    table's own state. :func:`check_invariants` and :func:`to_dict` take
+    it like a state; a mesh table's ``state`` alone gives its local
+    shards."""
+    if table.mesh is None:
+        return to_numpy(table.state)
+    from repro_torch.core.dist import gather_shards
+    full = gather_shards(table.spec.dist_config(), table.state, table.mesh)
+    return to_numpy(TableState(**full))
 
 
 def to_dict(cfg: TableConfig, state) -> dict:

@@ -189,14 +189,41 @@ def resize_pressure(cfg: T.TableConfig, policy: ResizePolicy,
     *merge-eligible* (live, above ``min_depth``, at or below half the low
     watermark). Elementwise over the state, so on a sharded table's
     stacked state the fraction is taken over all shards' live buckets."""
+    return _pressure(_pressure_counts(cfg, policy, st))
+
+
+def _pressure_counts(cfg: T.TableConfig, policy: ResizePolicy,
+                     st: T.TableState) -> torch.Tensor:
+    """i64[2]: the near-resize buckets and the live buckets of ``st``."""
     hi, lo = policy.thresholds(cfg.bucket_size)
     live = st.live            # trash row P is never live, so it drops out
     split_near = (live & ~st.frozen & (st.counts >= hi - 1)
                   & (st.bdepth < cfg.dmax))
     merge_near = live & (st.bdepth > policy.min_depth) & (st.counts <= lo // 2)
-    n_live = torch.clamp(live.sum(), min=1)
-    n_near = (split_near | merge_near).sum()
-    return n_near.to(torch.float32) / n_live.to(torch.float32)
+    return torch.stack([(split_near | merge_near).sum(), live.sum()])
+
+
+def _pressure(counts: torch.Tensor) -> torch.Tensor:
+    n_live = torch.clamp(counts[1], min=1)
+    return counts[0].to(torch.float32) / n_live.to(torch.float32)
+
+
+def policy_stats(cfg: T.TableConfig, policy, st: T.TableState,
+                 total=lambda x: x) -> dict:
+    """``{"splits", "merges", "pressure"}`` of a local or stacked state:
+    the action counters summed over shards, and
+    :func:`resize_pressure` over all shards' live buckets (zeros when
+    ``policy`` is None). ``total(x)`` sums a tensor over the ranks that
+    hold the other shards (a mesh table's ``model`` group; the identity
+    for a table on one device), so the counters and both pressure counts
+    are whole-table sums."""
+    pc = total(st.policy_counts.reshape(-1, 2).sum(dim=0))
+    if policy is None:
+        pressure = torch.zeros((), dtype=torch.float32,
+                               device=st.counts.device)
+    else:
+        pressure = _pressure(total(_pressure_counts(cfg, policy, st)))
+    return {"splits": pc[0], "merges": pc[1], "pressure": pressure}
 
 
 def wrap_apply_fn(policy: ResizePolicy, apply_fn):
@@ -204,7 +231,7 @@ def wrap_apply_fn(policy: ResizePolicy, apply_fn):
     ``apply_fn(cfg, state, ops) -> (state, result)`` (the facade's single
     wiring point; for sharded placement ``core/dist.py`` calls it per
     shard, with the per-shard config, so each shard resizes its own
-    key-space region)."""
+    key-space region; on a mesh, per local shard, with no collective)."""
 
     def apply_with_policy(cfg, state, ops):
         state, res = apply_fn(cfg, state, ops)

@@ -421,3 +421,18 @@ class StreamingOracle:
 
     def as_dict(self) -> Dict[int, int]:
         return dict(self.items)
+
+
+def run_sequential(ops, dmax: int, bucket_size: int, initial_depth: int = 0,
+                   hash_name: str = "fmix32") -> Tuple[SeqExtHash, List[int]]:
+    """Apply (kind, key, value) triples in order; kind ∈ {'ins','del'}."""
+    t = SeqExtHash(dmax, bucket_size, initial_depth, hash_name)
+    statuses = []
+    for kind, key, value in ops:
+        if kind == "ins":
+            statuses.append(t.insert(key, value))
+        elif kind == "del":
+            statuses.append(t.delete(key))
+        else:
+            raise ValueError(kind)
+    return t, statuses

@@ -22,13 +22,17 @@ canonical, layout-independent :class:`TableImage`:
   image from a *newer* writer fails with a clear error;
 * **placement-independent** — a sharded table's stacked state flattens
   its shard axis (each shard is more pool rows of one logical table), and
-  the header's policy counters are summed over shards.
+  the header's policy counters are summed over shards. A mesh table's
+  shards are first gathered over its ``model`` group, so every rank
+  extracts the stacked image; :func:`save_table` writes it on global
+  rank 0, behind a barrier.
 
 Restore replays the image through the ordinary combining transaction:
 :func:`restore_from_image` builds a fresh table for the **target** spec —
 which may differ from the save spec in ``dmax``, ``pool_size``,
-``n_lanes``, ``slab_capacity``, backend, placement or shard count (local
-→ sharded, sharded N → M, sharded → local) — and inserts the items
+``n_lanes``, ``slab_capacity``, backend, placement, shard count or mesh
+(local → sharded, sharded N → M, sharded → local, one mesh → another or
+onto one device) — and inserts the items
 through ``Table.apply``, so every item re-routes through hash → shard →
 directory and the reactive splits. Infeasible targets (a ``dmax`` too
 shallow for the image's densest hash-prefix group, too few slots or slab
@@ -110,9 +114,16 @@ def _schema_key(schema) -> Optional[tuple]:
 def extract_image(table) -> TableImage:
     """Canonical image of a ``Table`` handle: live buckets' occupied slots
     masked on the device, their keys, words and (schema mode) payload rows
-    copied to the host, then sorted by (full hash, key)."""
+    copied to the host, then sorted by (full hash, key). Every rank of a
+    mesh table calls this (its shards' rows are gathered over ``model``)
+    and gets the whole image."""
     spec = table.spec
     st = table.state
+    if table.mesh is not None:
+        from repro_torch.core.dist import gather_shards
+        st = st._replace(**gather_shards(
+            spec.dist_config(), st, table.mesh,
+            ("keys", "vals", "live", "policy_counts", "error")))
     B = spec.bucket_size
     # a stacked sharded state: its shards are more pool rows
     keys, vals = st.keys.reshape(-1, B), st.vals.reshape(-1, B)
@@ -320,19 +331,22 @@ def check_restorable(image: TableImage, spec: TableSpec) -> None:
 # restore (replay through the ordinary combining transaction)
 
 
-def restore_from_image(image: TableImage, spec: TableSpec, device=None):
+def restore_from_image(image: TableImage, spec: TableSpec, device=None,
+                       mesh=None):
     """Build a fresh ``Table`` for ``spec`` on ``device`` (default
-    ``"cuda"``) holding ``image``'s content: the items and their payloads
+    ``"cuda"``), or on ``mesh`` (every rank calls this with the same
+    image), holding ``image``'s content: the items and their payloads
     go in as inserts through ``Table.apply``, one ``n_lanes``-wide
     transaction per chunk, with the elastic policy detached; then the
     policy is reattached with the image's counters (on shard 0 of a
     sharded target: ``policy_stats`` sums the shards)."""
+    from repro_torch.core.dist import local_shards
     from repro_torch.table_api import Table  # table_api imports this module
 
     check_restorable(image, spec)
     load_spec = (dataclasses.replace(spec, resize_policy=None)
                  if spec.resize_policy is not None else spec)
-    table = Table.create(load_spec, device)
+    table = Table.create(load_spec, device, mesh)
     n = image.n_items
     if n:
         dev = table.device
@@ -355,7 +369,8 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
     st = table.state
     if spec.placement == "sharded":
         st.policy_counts.zero_()
-        st.policy_counts[0] = counts
+        if 0 in local_shards(spec.dist_config(), mesh):
+            st.policy_counts[0] = counts
     else:
         st = st._replace(policy_counts=counts)
     spec.plan(table.device.type)
@@ -367,10 +382,23 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None):
 
 
 def save_table(table, path: str) -> str:
-    """Serialize ``table`` to a durable image file at ``path``."""
-    return save_image(extract_image(table), path)
+    """Serialize ``table`` to a durable image file at ``path``. Every rank
+    of a mesh table calls this: global rank 0 writes the file, and no rank
+    returns before it is written."""
+    image = extract_image(table)
+    if table.mesh is None:
+        return save_image(image, path)
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        save_image(image, path)
+    if table.device.type == "cuda":
+        dist.barrier(device_ids=[table.device.index])
+    else:
+        dist.barrier()
+    return path
 
 
-def restore_table(path: str, spec: TableSpec, device=None):
-    """Load the image at ``path`` into a fresh table built for ``spec``."""
-    return restore_from_image(load_image(path), spec, device)
+def restore_table(path: str, spec: TableSpec, device=None, mesh=None):
+    """Load the image at ``path`` into a fresh table built for ``spec`` (on
+    ``mesh``, every rank reads the file)."""
+    return restore_from_image(load_image(path), spec, device, mesh)

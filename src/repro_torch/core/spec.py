@@ -3,7 +3,8 @@
 ``TableSpec`` has the field names of the JAX package's spec
 (``repro/core/spec.py``). This port serves local placement and sharded
 placement (``core/dist.py``: the top ``shard_bits`` of the hash pick one
-of ``2**shard_bits`` shards, every shard on the table's one device) with
+of ``2**shard_bits`` shards, stacked on the table's one device or spread
+over the ``model`` axis of a ``(data, model)`` device mesh) with
 raw i32 values or a **value schema**, the paper-reactive resize rule or an
 elastic :class:`~repro_torch.core.policy.ResizePolicy`, and saves and
 restores tables through the JAX package's image format
@@ -130,8 +131,8 @@ class TableSpec:
     use_fast_path: bool = True
 
     # --- placement -------------------------------------------------------
-    # (data_axis / model_axis name the JAX mesh's axes; every shard is on
-    # the table's one device here, so neither sizes anything)
+    # (data_axis / model_axis name the axes of a sharded table's mesh:
+    # see check_mesh)
     placement: str = "local"     # "local" | "sharded"
     shard_bits: int = 1          # sharded: 2**shard_bits table shards
     data_axis: str = "data"
@@ -235,4 +236,36 @@ class TableSpec:
         if self.placement != "sharded":
             raise ValueError("dist_config needs placement='sharded'")
         return D.DistConfig(shard_bits=self.shard_bits,
+                            data_axis=self.data_axis,
+                            model_axis=self.model_axis,
                             local=self.table_config())
+
+    def check_mesh(self, mesh) -> None:
+        """Raise ``ValueError`` unless a table of this spec can be laid out
+        on ``mesh`` (a ``torch.distributed`` ``DeviceMesh``), as the JAX
+        ``Table.create`` asserts: a sharded spec, a mesh with both the
+        ``data_axis`` and the ``model_axis``, ``model`` dividing
+        ``n_shards`` (a rank holds ``n_shards / model`` shards; the JAX
+        package needs exactly one), ``data`` dividing ``n_lanes``, and the
+        mesh spanning the whole process group."""
+        import torch.distributed as dist
+        if self.placement != "sharded":
+            raise ValueError("a mesh needs placement='sharded'; a local "
+                             "table lives on one device")
+        names = tuple(mesh.mesh_dim_names or ())
+        for axis in (self.data_axis, self.model_axis):
+            if axis not in names:
+                raise ValueError(f"the mesh has axes {names}, not "
+                                 f"{axis!r}")
+        data = mesh.size(names.index(self.data_axis))
+        model = mesh.size(names.index(self.model_axis))
+        if self.n_shards % model:
+            raise ValueError(f"mesh axis {self.model_axis!r}={model} does "
+                             f"not divide n_shards={self.n_shards}")
+        if self.n_lanes % data:
+            raise ValueError(f"mesh axis {self.data_axis!r}={data} does "
+                             f"not divide n_lanes={self.n_lanes}")
+        world = dist.get_world_size() if dist.is_initialized() else 0
+        if mesh.size() != world:
+            raise ValueError(f"the mesh has {mesh.size()} ranks; the "
+                             f"process group has {world}")

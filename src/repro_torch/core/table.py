@@ -748,6 +748,20 @@ def make_ops(cfg: TableConfig, state: TableState, kinds, keys, values=None):
                    seq=state.applied_seq + 1)
 
 
+def insert_batch(cfg: TableConfig, state: TableState, keys, values):
+    """One transaction upserting ``keys`` (exactly ``n_lanes`` of them)."""
+    ops = make_ops(cfg, state, torch.full((cfg.n_lanes,), INS, dtype=I32),
+                   keys, values)
+    return apply_batch(cfg, state, ops)
+
+
+def delete_batch(cfg: TableConfig, state: TableState, keys):
+    """One transaction deleting ``keys`` (exactly ``n_lanes`` of them)."""
+    ops = make_ops(cfg, state, torch.full((cfg.n_lanes,), DEL, dtype=I32),
+                   keys)
+    return apply_batch(cfg, state, ops)
+
+
 def table_size(state: TableState) -> torch.Tensor:
     # O(P) read of the incremental occupancy counts — no pool-wide recount
     return torch.where(state.live, state.counts, 0).sum()

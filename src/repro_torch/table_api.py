@@ -14,8 +14,24 @@ the plain transaction or the CUDA kernels, locally or per shard
 (``core/dist.py``), from **one dispatch point** (:func:`_raw_lookup` /
 :func:`_raw_apply`), chosen by the spec's plan and placement. A spec's
 ``resize_policy`` composes onto the transaction there (per shard for
-sharded placement). A sharded table keeps every shard on its one device,
-its state stacked on a leading ``[n_shards]`` axis.
+sharded placement). A sharded table keeps its shards stacked on a leading
+axis, all of them on its one device, or, built with a ``mesh``, spread
+over the mesh's ``model`` axis, one process per rank.
+
+A mesh table
+------------
+``Table.create(spec, mesh=mesh)`` lays a sharded table out on a
+``torch.distributed`` ``DeviceMesh`` with the spec's ``data_axis`` and
+``model_axis`` (``launch/mesh.py::make_local_mesh``): the rank at model
+coordinate ``m`` holds shards ``[m * k, (m + 1) * k)`` of ``k = n_shards /
+model``. Every rank calls every method with the same global batch, as the
+JAX package's single controller does; the rank's data coordinate picks its
+slice, ``core/dist.py`` announces the slices and reduces the results over
+the mesh, and every method returns the global result on every rank (an
+all-gather of the data slices over ``data``). ``size``, ``depth`` and
+``policy_stats`` are totals over the ``model`` group. Slabs and their
+liveness are replicated: every rank computes them from the same global
+results. The ranks must make every call in the same order.
 
 Value schemas (struct-of-slabs side store)
 ------------------------------------------
@@ -43,12 +59,12 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dist as D
 from repro_torch.core import snapshot
 from repro_torch.core import table as T
-from repro_torch.core.policy import (ResizePolicy, resize_pressure,
-                                     wrap_apply_fn)
+from repro_torch.core.policy import ResizePolicy, policy_stats, wrap_apply_fn
 from repro_torch.core.spec import (TableSpec, ValueField, signed_view,
                                    torch_dtype)
 from repro_torch.core.table import (DEL, INS, NOP, BatchResult, OpBatch,
@@ -57,8 +73,8 @@ from repro_torch.core.table import (DEL, INS, NOP, BatchResult, OpBatch,
 from repro_torch.kernels import ops as kops
 
 __all__ = [
-    "Table", "TableSpec", "ValueField", "ResizePolicy", "from_numpy_state",
-    "to_numpy", "NOP", "INS", "DEL", "BatchResult",
+    "Table", "TableSpec", "ValueField", "ResizePolicy", "create",
+    "from_numpy_state", "to_numpy", "NOP", "INS", "DEL", "BatchResult",
 ]
 
 
@@ -69,11 +85,18 @@ __all__ = [
 def _raw_lookup(table: "Table", state, queries):
     """Rule-A lookup of the i32 words under the table's plan: ``plain``
     runs ``table.lookup``, ``cuda`` the fused or the pre-routed probe
-    kernel (``kernels/ops.py``); per shard for sharded placement."""
+    kernel (``kernels/ops.py``); per shard for sharded placement (on a
+    mesh: the rank's data slice in, the global result out)."""
     lookup_fn = functools.partial(kops.plan_lookup, table.plan())
     if table.spec.placement == "sharded":
-        return D.dist_lookup(table.spec.dist_config(), state, queries,
-                             lookup_fn=lookup_fn)
+        dcfg, mesh = table.spec.dist_config(), table.mesh
+        found, word = D.dist_lookup(dcfg, state,
+                                    D.data_slice(dcfg, queries, mesh),
+                                    lookup_fn=lookup_fn, mesh=mesh)
+        if mesh is None:
+            return found, word
+        found, word = D.gather_data(dcfg, mesh, found.to(torch.int32), word)
+        return found > 0, word
     return lookup_fn(table.config, state, queries)
 
 
@@ -82,13 +105,20 @@ def _raw_apply(table: "Table", state, ops: OpBatch):
     ``table.apply_batch``, ``cuda`` the fused or the grouped apply kernel;
     per shard for sharded placement. ``spec.resize_policy`` composes onto
     it here: the policy's split and merge passes run right after each
-    transaction, on each shard's own state."""
+    transaction, on each shard's own state. On a mesh the rank's data
+    slice of ``ops`` goes in and the global statuses come out."""
     apply_fn = functools.partial(kops.plan_apply, table.plan())
     if table.spec.resize_policy is not None:
         apply_fn = wrap_apply_fn(table.spec.resize_policy, apply_fn)
     if table.spec.placement == "sharded":
-        return D.dist_apply_batch(table.spec.dist_config(), state, ops,
-                                  apply_fn=apply_fn)
+        dcfg, mesh = table.spec.dist_config(), table.mesh
+        mine = OpBatch(*(D.data_slice(dcfg, x, mesh) for x in ops))
+        state, res = D.dist_apply_batch(dcfg, state, mine,
+                                        apply_fn=apply_fn, mesh=mesh)
+        if mesh is not None:
+            status, = D.gather_data(dcfg, mesh, res.status.to(torch.int32))
+            res = res._replace(status=status.to(torch.int8))
+        return state, res
     return apply_fn(table.config, state, ops)
 
 
@@ -98,18 +128,22 @@ def _raw_apply(table: "Table", state, ops: OpBatch):
 
 class Table:
     """Table handle: spec + device + state + (schema mode) payload slabs
-    and their liveness bitmap + the facade's seq counter."""
+    and their liveness bitmap + the facade's seq counter + the mesh of a
+    mesh table (None on one device)."""
 
-    __slots__ = ("spec", "device", "state", "slabs", "slab_live", "seq")
+    __slots__ = ("spec", "device", "state", "slabs", "slab_live", "seq",
+                 "mesh")
 
     def __init__(self, spec: TableSpec, device: torch.device,
-                 state: T.TableState, slabs, slab_live, seq: int):
+                 state: T.TableState, slabs, slab_live, seq: int,
+                 mesh=None):
         object.__setattr__(self, "spec", spec)
         object.__setattr__(self, "device", device)
         object.__setattr__(self, "state", state)
         object.__setattr__(self, "slabs", slabs)
         object.__setattr__(self, "slab_live", slab_live)
         object.__setattr__(self, "seq", seq)
+        object.__setattr__(self, "mesh", mesh)
 
     def __setattr__(self, name, value):
         raise AttributeError("Table handles are not reassigned; methods "
@@ -123,21 +157,40 @@ class Table:
                 f"values={fields})")
 
     @classmethod
-    def create(cls, spec: TableSpec, device=None) -> "Table":
-        """An empty table for ``spec`` on ``device`` (default ``"cuda"``);
-        a sharded spec's shards all go on ``device``."""
-        dev = resolve_device(device)
+    def create(cls, spec: TableSpec, device=None, mesh=None) -> "Table":
+        """An empty table for ``spec`` on ``device`` (default ``"cuda"``).
+        A sharded spec's shards all go on ``device``, or with ``mesh`` (a
+        ``DeviceMesh``, see :meth:`TableSpec.check_mesh`) this rank's
+        shards go on its device of the mesh's type (``cuda`` is the
+        current device); every rank of the mesh calls this."""
+        dev = _mesh_device(spec, device, mesh)
         if spec.placement == "sharded":
-            return cls.from_state(spec, D.init_dist_table(
-                spec.dist_config(), spec.n_lanes, dev))
-        return cls.from_state(spec, T.init_table(spec.table_config(), dev))
+            return cls._wrap(spec, D.init_dist_table(
+                spec.dist_config(), spec.n_lanes, dev, mesh), mesh=mesh)
+        return cls._wrap(spec, T.init_table(spec.table_config(), dev))
 
     @classmethod
     def from_state(cls, spec: TableSpec, state: T.TableState, seq: int = 0,
-                   slabs=None, slab_live=None) -> "Table":
+                   slabs=None, slab_live=None, mesh=None) -> "Table":
         """Wrap an existing state (e.g. from :func:`from_numpy_state`). In
         schema mode ``slabs`` / ``slab_live`` default to an empty side
-        store (row ``slab_rows``, the trash row, is born live)."""
+        store (row ``slab_rows``, the trash row, is born live). With
+        ``mesh``, ``state`` is a whole stacked sharded state and the table
+        keeps this rank's rows of it (views: the JAX package's
+        ``device_put`` with ``P(model)``); every rank calls this."""
+        if mesh is not None:
+            _mesh_device(spec, state.keys.device, mesh)
+            if state.keys.shape[0] != spec.n_shards:
+                raise ValueError(f"a stacked state of {spec.n_shards} "
+                                 f"shards, not {state.keys.shape[0]}")
+            rows = D.local_shards(spec.dist_config(), mesh)
+            state = T.TableState(*(x[rows.start:rows.stop] for x in state))
+        return cls._wrap(spec, state, seq, slabs, slab_live, mesh)
+
+    @classmethod
+    def _wrap(cls, spec, state, seq=0, slabs=None, slab_live=None,
+              mesh=None) -> "Table":
+        """A handle on ``state`` as it is (a mesh table's local rows)."""
         dev = state.keys.device
         spec.plan(dev.type)         # resolves the plan for this device type
         if spec.value_schema is not None and slabs is None:
@@ -148,7 +201,7 @@ class Table:
                      for f in spec.value_schema}
             slab_live = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
             slab_live[cap] = True
-        return cls(spec, dev, state, slabs, slab_live, seq)
+        return cls(spec, dev, state, slabs, slab_live, seq, mesh)
 
     def _replace(self, **kw) -> "Table":
         return Table(**{s: kw.get(s, getattr(self, s))
@@ -197,11 +250,11 @@ class Table:
     def size(self) -> torch.Tensor:
         """Live item count (an O(pool) read of the occupancy counts; summed
         over shards)."""
-        return T.table_size(self.state)
+        return self._total(T.table_size(self.state))
 
     def depth(self) -> torch.Tensor:
         """Logical directory depth (the max over shards)."""
-        return self.state.depth.max()
+        return self._total(self.state.depth.max(), dist.ReduceOp.MAX)
 
     def policy_stats(self) -> dict:
         """Cumulative elastic-policy actions and the live backpressure
@@ -211,12 +264,20 @@ class Table:
         :func:`~repro_torch.core.policy.resize_pressure`, over all shards'
         live buckets. All three are zeros when ``spec.resize_policy`` is
         None."""
-        pc = self.state.policy_counts.reshape(-1, 2).sum(dim=0)
-        pol = self.spec.resize_policy
-        pressure = (resize_pressure(self.config, pol, self.state)
-                    if pol is not None else
-                    torch.zeros((), dtype=torch.float32, device=self.device))
-        return {"splits": pc[0], "merges": pc[1], "pressure": pressure}
+        return policy_stats(self.config, self.spec.resize_policy,
+                            self.state, self._total)
+
+    def _total(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` over the whole table: reduced over a mesh table's
+        ``model`` group, as it is on one device."""
+        if self.mesh is None:
+            return x
+        return D.reduce_model(self.spec.dist_config(), x, self.mesh, op)
+
+    def _error(self) -> torch.Tensor:
+        """The error flag of any shard (bool[], the same on every rank)."""
+        return self._total(self.state.error.any().to(torch.int32),
+                           dist.ReduceOp.MAX) > 0
 
     # -- updates: return (table', BatchResult) -----------------------------
 
@@ -259,7 +320,7 @@ class Table:
             # empty batch: no transaction, no seq tick
             return self, BatchResult(
                 status=torch.zeros(0, dtype=torch.int8, device=self.device),
-                error=self.state.error.any())
+                error=self._error())
         n = self.spec.n_lanes
         n_chunks, padded = self.spec.plan_batch(m)
         kinds, keys = _pad(kinds, padded), _pad(keys, padded)   # NOP == 0
@@ -270,10 +331,12 @@ class Table:
             lanes = slice(c * n, (c + 1) * n)
             chunk = ({k: v[lanes] for k, v in values.items()}
                      if isinstance(values, dict) else values[lanes])
-            t, status = t._apply_chunk(kinds[lanes], keys[lanes], chunk)
+            t, status, error = t._apply_chunk(kinds[lanes], keys[lanes],
+                                              chunk)
             statuses.append(status)
         status = torch.cat(statuses)[:m]
-        return t, BatchResult(status=status, error=t.state.error.any())
+        # the error flag is sticky: the last chunk's covers the call
+        return t, BatchResult(status=status, error=error)
 
     def merge(self, parent_prefix: int, parent_depth: int):
         """Merge the two buddy buckets of a would-be parent (paper §4.5).
@@ -296,21 +359,25 @@ class Table:
         return snapshot.save_table(self, path)
 
     @classmethod
-    def restore(cls, path: str, spec: TableSpec, device=None) -> "Table":
+    def restore(cls, path: str, spec: TableSpec, device=None,
+                mesh=None) -> "Table":
         """Load an image (saved by either package) into a fresh table built
-        for ``spec`` on ``device`` (default ``"cuda"``). ``spec`` may differ
+        for ``spec`` on ``device`` (default ``"cuda"``), or on ``mesh`` as
+        :meth:`create` builds it. ``spec`` may differ
         from the spec the image was saved under — another ``dmax``, pool,
-        lane width, slab capacity or backend; the items re-route through
+        lane width, slab capacity, backend, placement, shard count or
+        mesh; the items re-route through
         the ordinary directory math, reactive splits included. Infeasible
         targets (a mismatched value schema among them) raise
         ``ValueError`` before any device work."""
-        return snapshot.restore_table(path, spec, device)
+        return snapshot.restore_table(path, spec, device, mesh)
 
     # -- one transaction ---------------------------------------------------
 
     def _apply_chunk(self, kinds, keys, values):
         """One ``n_lanes``-wide combining transaction, plus the payload
-        side store's maintenance in schema mode. Returns (table', status)."""
+        side store's maintenance in schema mode. Returns (table', status,
+        error): the error flag of any shard after it."""
         seq = self.seq + 1
         n = kinds.shape[0]
         seqs = torch.full((n,), seq, dtype=torch.int32, device=self.device)
@@ -318,7 +385,7 @@ class Table:
             st, res = _raw_apply(self, self.state,
                                  OpBatch(kind=kinds, key=keys, value=values,
                                          seq=seqs))
-            return self._replace(state=st, seq=seq), res.status
+            return self._replace(state=st, seq=seq), res.status, res.error
 
         cap = self.spec.slab_rows
         # the transaction consumes the state: read the keys' handles first
@@ -338,7 +405,8 @@ class Table:
         _reconcile_handles(self.slab_live, found0, h0, first, rows, found1,
                            h1, cap)
         st = st._replace(error=st.error | exhausted)
-        return self._replace(state=st, seq=seq), res.status
+        return (self._replace(state=st, seq=seq), res.status,
+                res.error | exhausted)
 
     # -- helpers -----------------------------------------------------------
 
@@ -381,6 +449,28 @@ class Table:
                                  f"{(m,) + f.shape}")
             out[f.name] = leaf
         return out
+
+
+def create(spec: TableSpec, device=None, mesh=None) -> Table:
+    """Module-level alias of :meth:`Table.create`."""
+    return Table.create(spec, device, mesh)
+
+
+def _mesh_device(spec: TableSpec, device, mesh) -> torch.device:
+    """The device a table of ``spec`` goes on: ``device`` (default
+    ``"cuda"``), or on ``mesh`` (validated against ``spec``) this rank's
+    device of the mesh's type, which ``device`` may name but not
+    contradict."""
+    if mesh is None:
+        return resolve_device(device)
+    spec.check_mesh(mesh)
+    kind = mesh.device_type
+    dev = resolve_device(kind if device is None else device)
+    if dev.type != kind:
+        raise ValueError(f"a {kind} mesh cannot hold a table on {dev}")
+    if kind == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 # ---------------------------------------------------------------------------

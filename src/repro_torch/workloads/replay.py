@@ -2,7 +2,9 @@
 paper-literal sequential oracle, and report what the elastic policy did.
 
 The port of ``repro/workloads/replay.py``: the same checks and the same
-report, on a ``repro_torch`` table (local or sharded) on one device.
+report, on a ``repro_torch`` table: local or sharded on one device, or
+sharded across the ranks of a device mesh (every rank runs the replay,
+and every rank's report is the same).
 
 The replayer is the differential harness of the churn engine. Every step it
 
@@ -51,7 +53,9 @@ proves the table really did resize under the workload.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import tempfile
 import time
 from typing import Optional
 
@@ -65,6 +69,30 @@ from repro_torch.workloads.generators import DEL, INS, NOP
 from repro_torch.workloads.trace import Trace, gen_steps
 
 ORACLES = ("streaming", "materializing", "both")
+
+
+@contextlib.contextmanager
+def _shared_dir(mesh):
+    """A temporary directory; on a mesh, rank 0's, its path broadcast to
+    every rank, and removed only after every rank is done with it."""
+    if mesh is None:
+        with tempfile.TemporaryDirectory() as td:
+            yield td
+        return
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    tmp = tempfile.TemporaryDirectory() if rank == 0 else None
+    path = [tmp.name if tmp else None]
+    dist.broadcast_object_list(path, src=0)
+    try:
+        yield path[0]
+    finally:
+        if mesh.device_type == "cuda":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+        if tmp:
+            tmp.cleanup()
 
 
 class ReplayMismatch(AssertionError):
@@ -96,29 +124,34 @@ def replay(
     max_examples: int = 8,
     restore_spec=None,
     oracle: str = "streaming",
+    mesh=None,
 ) -> dict:
     """Run ``trace`` through a fresh table built from ``spec`` on
-    ``device`` (default ``"cuda"``).
+    ``device`` (default ``"cuda"``), or on ``mesh`` (a sharded spec; every
+    rank of the mesh calls this, and a revive's image file is written by
+    rank 0 in a directory every rank reads, so the ranks share a file
+    system).
 
     ``check=False`` skips the oracle entirely (benchmark mode: no per-step
     host sync beyond the ``depth_every`` sampling). ``restore_spec``
     (default: ``spec``) is the target spec for ``snapshot_restore`` phase
     revives — pass a different one to revive into another geometry or
-    placement (re-shard mid-trace).
+    placement (re-shard mid-trace); a sharded ``restore_spec`` revives
+    on ``mesh`` too, a local one on each rank's device.
     ``oracle``
     selects the reference implementation (see module docstring):
     ``"streaming"`` | ``"materializing"`` | ``"both"``. Returns the
     report dict described in the module docstring."""
-    import tempfile
-
     from repro_torch.table_api import Table
 
     if spec.value_schema is not None:
         raise ValueError("replay drives the raw i32 value mode")
     if oracle not in ORACLES:
         raise ValueError(f"oracle {oracle!r} not in {ORACLES}")
-    table = Table.create(spec, device)
+    table = Table.create(spec, device, mesh)
     device = table.device
+    rspec = restore_spec or spec
+    rmesh = mesh if rspec.placement == "sharded" else None
 
     def sync() -> None:
         if device.type == "cuda":
@@ -186,11 +219,11 @@ def replay(
             if step.phase.startswith("snapshot_restore"):
                 # kill & revive: durable image round trip through disk,
                 # while the oracle (the surviving truth) runs uninterrupted
-                error_seen |= bool(table.state.error.any())
-                with tempfile.TemporaryDirectory() as td:
+                error_seen |= bool(table._error())
+                with _shared_dir(mesh) as td:
                     path = table.save(os.path.join(td, "table.npz"))
                     del table
-                    table = Table.restore(path, restore_spec or spec, device)
+                    table = Table.restore(path, rspec, device, rmesh)
                 snapshot_restores += 1
         steps += 1
         phase_steps += 1
@@ -354,7 +387,7 @@ def replay(
             "decreases": decreases,
             "trajectory": depth_traj,
         },
-        "error_flag": error_seen | bool(table.state.error.any()),
+        "error_flag": error_seen | bool(table._error()),
         "snapshot_restores": snapshot_restores,
         "phases": phase_rows,
     }

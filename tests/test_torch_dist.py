@@ -150,20 +150,48 @@ def _jax_main(out_path):
     return 0
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("jax_dist") / "jax.npz")
+def session_path(tmp_path_factory, name, make):
+    """``<session temporary root>/<name>``, made once per test session by
+    ``make(path)``: under pytest-xdist the workers share the session's
+    root, and the first to need the path makes it under a file lock while
+    the others wait. ``make`` leaves the path only when it succeeds."""
+    from filelock import FileLock
+
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = str(root / name)
+    with FileLock(path + ".lock"):
+        if not os.path.exists(path):
+            make(path)
+    return path
+
+
+def _make_jax_side(path):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.path.abspath(
         os.path.join(os.path.dirname(HERE), "..", "src"))
-    proc = subprocess.run([sys.executable, HERE, "--jax-side", path],
+    tmp = path + ".part.npz"
+    proc = subprocess.run([sys.executable, HERE, "--jax-side", tmp],
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
-    with np.load(path) as z:
+    os.replace(tmp, path)
+
+
+def shared_jax_run(tmp_path_factory):
+    """The JAX side's arrays, computed once per test session
+    (``tests/test_torch_mesh_table.py`` reads the same file)."""
+    with np.load(session_path(tmp_path_factory, "jax_dist.npz",
+                              _make_jax_side)) as z:
         return dict(z)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return shared_jax_run(tmp_path_factory)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ it); ``test_empty_key_insert_leaves_payloads_alone`` pins the port's
 behaviour instead. The ``cuda`` plan on the card is held against the
 ``plain`` plan in ``test_torch_cuda_paths.py``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -401,63 +403,167 @@ def port_values(schema, vals):
     return out
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_every_dtype_matches_jax(dtype, tmp_path):
-    """One scalar and one ``(2,)`` field of ``dtype``: the same insert,
-    upsert, delete and mixed batches through the JAX facade
-    (``backend="xla"``) and the port (CPU) give equal statuses, payloads,
-    slabs and images, and each package restores the other's image."""
-    geom = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
-    port_schema = {"v": dtype, "w": (dtype, (2,))}
-    jax_schema = {"v": jnp.dtype(dtype), "w": (jnp.dtype(dtype), (2,))}
-    spec = TableSpec(**geom, backend="plain", value_schema=port_schema)
-    jspec = JaxSpec(**geom, backend="xla", value_schema=jax_schema)
-    assert spec.value_schema == jspec.value_schema
-    t, jt = Table.create(spec, device="cpu"), JaxTable.create(jspec)
+DTYPE_GEOM = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
+
+
+def dtype_schemas(dtype):
+    """(port schema, JAX schema): one scalar and one ``(2,)`` field."""
+    return ({"v": dtype, "w": (dtype, (2,))},
+            {"v": jnp.dtype(dtype), "w": (jnp.dtype(dtype), (2,))})
+
+
+def dtype_values(dtype, keys):
+    w = np.stack([typed(dtype, keys), typed(dtype, np.asarray(keys) + 7)],
+                 -1)
+    return {"v": typed(dtype, keys), "w": w}
+
+
+def dtype_stream(dtype):
+    """The insert, upsert, delete and mixed batches of ``dtype``'s case as
+    (kinds, keys, the keys its values are drawn from), and its queries:
+    every batch 24 ops and every lookup 96 keys, one compiled shape each."""
     rng = np.random.default_rng(DTYPES.index(dtype))
-
-    def vals(keys):
-        w = np.stack([typed(dtype, keys), typed(dtype, np.asarray(keys) + 7)],
-                     -1)
-        return {"v": typed(dtype, keys), "w": w}
-
-    def both(kinds, keys, v):
-        nonlocal t, jt
-        t, res = t.apply(kinds, keys, port_values(spec.value_schema, v))
-        jt, jres = jt.apply(kinds, keys, v)
-        np.testing.assert_array_equal(res.status.numpy(),
-                                      np.asarray(jres.status))
-
-    def same_lookup(q):
-        found, got = t.lookup(q)
-        jfound, jgot = jt.lookup(q)
-        np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
-        for name in ("v", "w"):
-            assert got[name].dtype == spec.field_dtypes()[name]
-            np.testing.assert_array_equal(to_bits(got[name]),
-                                          to_bits(jgot[name]), err_msg=name)
-
-    # every batch 24 ops and every lookup 96 keys: one compiled shape each
     keys = rng.choice(np.arange(1, 4000), size=48,
                       replace=False).astype(np.int32)
     ones = np.ones(24, np.int32)
-    both(ones, keys[:24], vals(keys[:24]))                 # insert
-    both(ones, keys[24:], vals(keys[24:]))
-    both(ones, keys[:24], vals(keys[:24] + 5))             # upsert
-    both(2 * ones, keys[12:36], vals(keys[12:36]))         # delete
+    batches = [(ones, keys[:24], keys[:24]),                  # insert
+               (ones, keys[24:], keys[24:]),
+               (ones, keys[:24], keys[:24] + 5),              # upsert
+               (2 * ones, keys[12:36], keys[12:36])]          # delete
     for _ in range(3):
         kinds = rng.integers(0, 3, size=24).astype(np.int32)
         ks = rng.choice(np.r_[keys, keys + 4001], size=24).astype(np.int32)
-        both(kinds, ks, vals(ks + 1))
-    q = np.r_[keys, keys + 4001].astype(np.int32)
-    same_lookup(q)
+        batches.append((kinds, ks, ks + 1))
+    return batches, np.r_[keys, keys + 4001].astype(np.int32)
+
+
+def port_dtype_table(dtype):
+    """``dtype``'s stream through the port (CPU): (table, statuses)."""
+    port_schema, _ = dtype_schemas(dtype)
+    spec = TableSpec(**DTYPE_GEOM, backend="plain", value_schema=port_schema)
+    t = Table.create(spec, device="cpu")
+    statuses = []
+    for kinds, keys, vkeys in dtype_stream(dtype)[0]:
+        t, res = t.apply(kinds, keys, port_values(
+            spec.value_schema, dtype_values(dtype, vkeys)))
+        statuses.append(res.status.numpy())
+    return t, statuses
+
+
+def _jax_dtypes(port_dir, out_path):
+    """The JAX half of ``test_every_dtype_matches_jax`` for every dtype,
+    in one process: the JAX facade's (``backend="xla"``) statuses,
+    lookups, slabs, saved image file and in-memory image, and its restore
+    of the port's image file of the same stream."""
+    import json
+    out = {}
+    for dtype in DTYPES:
+        _, jax_schema = dtype_schemas(dtype)
+        jspec = JaxSpec(**DTYPE_GEOM, backend="xla", value_schema=jax_schema)
+        out[f"{dtype}|schema"] = np.frombuffer(json.dumps(
+            [[f[0], f[1], list(f[2])] for f in jspec.value_schema]).encode(),
+            np.uint8)
+        jt = JaxTable.create(jspec)
+        batches, q = dtype_stream(dtype)
+        for i, (kinds, keys, vkeys) in enumerate(batches):
+            jt, jres = jt.apply(kinds, keys, dtype_values(dtype, vkeys))
+            out[f"{dtype}|status{i}"] = np.asarray(jres.status)
+        jfound, jgot = jt.lookup(q)
+        out[f"{dtype}|got_found"] = np.asarray(jfound)
+        cap = jspec.slab_rows
+        for name in ("v", "w"):
+            out[f"{dtype}|got_{name}"] = to_bits(jgot[name])
+            out[f"{dtype}|slab_{name}"] = to_bits(
+                np.asarray(jt.slabs[name])[:cap])
+        jt.save(os.path.join(port_dir, f"jax_{dtype}.npz"))
+        image = JS.extract_image(jt)
+        out[f"{dtype}|mem_header"] = np.frombuffer(
+            json.dumps(image.header, default=lambda o: o.item()).encode(),
+            np.uint8)
+        out[f"{dtype}|mem_keys"] = image.keys
+        for name in ("v", "w"):
+            out[f"{dtype}|mem_{name}"] = to_bits(image.values[name])
+        # the JAX package restores the port's file; its reader leaves a
+        # bfloat16 field as raw V2 words, which its restore cannot take,
+        # so they are viewed as ml_dtypes.bfloat16 first (ROADMAP §3)
+        image = JS.load_image(os.path.join(port_dir, f"port_{dtype}.npz"))
+        if dtype == "bfloat16":
+            image.values = {k: v.view(jnp.bfloat16)
+                            for k, v in image.values.items()}
+        jfound, jgot = JS.restore_from_image(image, jspec).lookup(q)
+        out[f"{dtype}|back_found"] = np.asarray(jfound)
+        for name in ("v", "w"):
+            out[f"{dtype}|back_{name}"] = to_bits(jgot[name])
+    np.savez(out_path, **out)
+    return 0
+
+
+def _make_jax_dtypes(path):
+    """The port's image file of every dtype's stream, then the JAX half
+    in a fresh process (XLA's CPU compiler has crashed in test workers that
+    had compiled many programs)."""
+    import subprocess
+    import sys
+    os.makedirs(path + ".part", exist_ok=True)
+    for dtype in DTYPES:
+        t, _ = port_dtype_table(dtype)
+        t.save(os.path.join(path + ".part", f"port_{dtype}.npz"))
+    here = os.path.abspath(__file__)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(os.path.dirname(here), "..", "src"))
+    proc = subprocess.run(
+        [sys.executable, here, "--jax-dtypes", path + ".part",
+         os.path.join(path + ".part", "jax.npz")],
+        env=env, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    os.replace(path + ".part", path)
+
+
+@pytest.fixture(scope="module")
+def jax_dtypes(tmp_path_factory):
+    """(the JAX half's arrays, the directory of both packages' files),
+    made once per test session."""
+    from test_torch_dist import session_path
+    path = session_path(tmp_path_factory, "jax_dtypes", _make_jax_dtypes)
+    with np.load(os.path.join(path, "jax.npz")) as z:
+        return dict(z), path
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_every_dtype_matches_jax(dtype, tmp_path, jax_dtypes):
+    """One scalar and one ``(2,)`` field of ``dtype``: the same insert,
+    upsert, delete and mixed batches through the JAX facade
+    (``backend="xla"``) and the port (CPU) give equal statuses, payloads,
+    slabs and images, and each package restores the other's image. The
+    JAX half runs for every dtype in one subprocess (``_jax_dtypes``)."""
+    import json
+    J, files = jax_dtypes
+    port_schema, _ = dtype_schemas(dtype)
+    spec = TableSpec(**DTYPE_GEOM, backend="plain", value_schema=port_schema)
+    assert [[f.name, f.dtype, list(f.shape)] for f in spec.value_schema] \
+        == json.loads(bytes(J[f"{dtype}|schema"]).decode())
+    t, statuses = port_dtype_table(dtype)
+    for i, status in enumerate(statuses):
+        np.testing.assert_array_equal(status, J[f"{dtype}|status{i}"])
+
+    _, q = dtype_stream(dtype)
+
+    def same_lookup(table, prefix):
+        found, got = table.lookup(q)
+        np.testing.assert_array_equal(found.numpy(), J[f"{prefix}found"])
+        for name in ("v", "w"):
+            assert got[name].dtype == spec.field_dtypes()[name]
+            np.testing.assert_array_equal(to_bits(got[name]),
+                                          J[f"{prefix}{name}"], err_msg=name)
+
+    same_lookup(t, f"{dtype}|got_")
     cap = spec.slab_rows
     for name, slab in t.slabs.items():
         np.testing.assert_array_equal(to_bits(slab[:cap]),
-                                      to_bits(np.asarray(jt.slabs[name])[:cap]))
+                                      J[f"{dtype}|slab_{name}"])
 
     path = t.save(str(tmp_path / "port.npz"))
-    jpath = jt.save(str(tmp_path / "jax.npz"))
+    jpath = os.path.join(files, f"jax_{dtype}.npz")
     mine, theirs = S.load_image(path), S.load_image(jpath)
     assert mine.header == theirs.header
     assert mine.header["value_schema"][0][1] == dtype
@@ -471,27 +577,24 @@ def test_every_dtype_matches_jax(dtype, tmp_path):
 
     # the port restores the JAX file and the JAX package's in-memory image
     # (its bfloat16 arrays are ml_dtypes.bfloat16)
-    for image in (S.load_image(jpath), JS.extract_image(jt)):
-        back = S.restore_from_image(image, spec, "cpu")
-        found, got = back.lookup(q)
-        want_found, want = jt.lookup(q)
-        np.testing.assert_array_equal(found.numpy(), np.asarray(want_found))
-        for name in ("v", "w"):
-            np.testing.assert_array_equal(to_bits(got[name]),
-                                          to_bits(want[name]))
-    # the JAX package restores the port's file; its reader leaves a
-    # bfloat16 field as raw V2 words, which its restore cannot take, so
-    # they are viewed as ml_dtypes.bfloat16 first (ROADMAP §3)
-    image = JS.load_image(path)
-    if dtype == "bfloat16":
-        image.values = {k: v.view(jnp.bfloat16)
-                        for k, v in image.values.items()}
-    jback = JS.restore_from_image(image, jspec)
-    jfound, jgot = jback.lookup(q)
-    found, got = t.lookup(q)
-    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    def mem(name):
+        x = J[f"{dtype}|mem_{name}"]
+        return x.view(jnp.bfloat16) if dtype == "bfloat16" else x
+
+    memory = S.TableImage(
+        header=json.loads(bytes(J[f"{dtype}|mem_header"]).decode()),
+        keys=J[f"{dtype}|mem_keys"], values={n: mem(n) for n in ("v", "w")})
+    for image in (S.load_image(jpath), memory):
+        same_lookup(S.restore_from_image(image, spec, "cpu"), f"{dtype}|got_")
+    # the JAX package restored the port's file of this stream, the file
+    # this test's table writes
+    fixture_file = S.load_image(os.path.join(files, f"port_{dtype}.npz"))
+    assert fixture_file.header == mine.header
+    np.testing.assert_array_equal(fixture_file.keys, mine.keys)
     for name in ("v", "w"):
-        np.testing.assert_array_equal(to_bits(got[name]), to_bits(jgot[name]))
+        np.testing.assert_array_equal(to_bits(fixture_file.values[name]),
+                                      to_bits(mine.values[name]))
+    same_lookup(t, f"{dtype}|back_")
 
 
 @pytest.mark.parametrize("declared", [torch.bfloat16, "bfloat16",
@@ -531,3 +634,9 @@ def test_64bit_fields_keep_full_width(tmp_path):
     image = S.load_image(str(tmp_path / "wide.npz"))
     assert image.values["i"].dtype == np.int64
     assert int(image.values["i"][list(image.keys).index(3)]) == 2**40
+
+
+if __name__ == "__main__":
+    import sys
+    assert sys.argv[1] == "--jax-dtypes", sys.argv
+    sys.exit(_jax_dtypes(sys.argv[2], sys.argv[3]))
