@@ -227,13 +227,30 @@ printing one JSON line:
     lanes, the image equal. The line: ms per write transaction on the
     mesh and stacked, ms in the collectives per transaction (CUDA events
     around each collective call), collective calls per facade call, and
-    the launches by kernel, one per local shard per kernel call.
+    the launches by kernel, one per local shard per kernel call;
+20. mesh serving: a one-rank NCCL group started here as phase 19 starts
+    its own (destroyed at the end). (a) ``serve_closed_loop`` (256 clients
+    x 64 "churn" ops, the scenarios' policy) on a 4-shard ``SHARD_SPEC``
+    table on the ``(1, 1)`` mesh, its cost model measured there, handed
+    over halfway onto the 2-shard 4,096-lane ``SHARD2_SPEC`` on
+    ``default_mesh_for(2)`` (an N -> M move): ``ok``, 0 dropped, every
+    request against the oracle, one agreement broadcast (rank 0's service
+    time) per dispatch, the fused kernels before the handover and the
+    unfused ones after it; requests per second of service time and the
+    latency percentiles beside phase 15's stacked closed loop, the
+    broadcast's ms (CUDA events and host clock). (b) ``chaos_replay`` of
+    ``chaos_reshard`` at 6,000 ops with ``mesh_for=default_mesh_for`` and
+    a forced schedule: re-shard 2 -> 4, handover -> 8, a kill/revive of
+    the mesh table, re-shard -> local, a kill/revive of the local table,
+    -> 8, a torn save of the mesh table, -> 4; every
+    digest against the oracle, the invariants on each event's target, the
+    error flag clear, the torn image intact, one mesh built.
 
 Then the ``nvidia-smi`` name/power line, the kernels line (with each
 kernel's launches on the sharded, the LLM, the sharded serving, the
-training path, the launch tier, the mesh train step and the mesh table
-beside the main path's, and the probes' and ``grouped_apply``'s warm ms
-per launch shape)
+training path, the launch tier, the mesh train step, the mesh table and
+mesh serving beside the main path's, and the probes' and
+``grouped_apply``'s warm ms per launch shape)
 and, last,
 ``{"ok": true, "device": {...}}``. Any failed check raises: the exit code
 is non-zero and the last line is not printed. Without a CUDA device, or
@@ -1614,10 +1631,10 @@ def unfused_times(tw, rng, dev):
 
 
 # the TPU kernel each CUDA kernel replaces (its jitted function's line)
-REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:190",
-            "fused_apply": "src/repro/kernels/apply.py:307",
-            "probe": "src/repro/kernels/lookup.py:92",
-            "grouped_apply": "src/repro/kernels/apply.py:102"}
+REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:192",
+            "fused_apply": "src/repro/kernels/apply.py:309",
+            "probe": "src/repro/kernels/lookup.py:93",
+            "grouped_apply": "src/repro/kernels/apply.py:103"}
 
 
 def ptxas_report():
@@ -2498,10 +2515,11 @@ def serve_requests(router, clients, wide_spec):
     still queued. Returns (launches before, at and after the handover —
     with the facade's calls under ``calls_*`` and the per-shard queue
     depths just before and after the handover and their recount by home
-    shard under ``queue_depths`` —, summed service seconds, handover
-    seconds, virtual seconds)."""
+    shard under ``queue_depths`` —, the service seconds summed over the
+    dispatches (``router`` is fresh: its ``busy_s``), handover seconds,
+    virtual seconds)."""
     total = sum(clients.remaining)
-    now = busy_until = service_s = 0.0
+    now = busy_until = 0.0
     launches, handover_s = {}, 0.0
     zero_counts()
     with FacadeCalls() as calls:
@@ -2526,12 +2544,11 @@ def serve_requests(router, clients, wide_spec):
             done = router.pump(now=now)
             if done:
                 busy_until = done[0].t_complete
-                service_s += done[0].t_complete - done[0].t_dispatch
                 clients.absorb(done)
             now = clients.next_time(router, now, busy_until)
         launches["after"] = read_counts()
         launches["calls_after"] = calls.take()
-    return launches, service_s, handover_s, now
+    return launches, router.metrics.busy_s, handover_s, now
 
 
 def latency_ms(hist):
@@ -3760,6 +3777,28 @@ def cross_placement_moves(rep, origin: str) -> int:
     return moves
 
 
+def stacked_closed_loop(dev, seed):
+    """``serve_closed_loop`` on ``SHARD_SPEC`` (stacked) handed over onto
+    the local main geometry (the same aggregate bits): (report, seconds,
+    launches)."""
+    from repro_torch.serving.router import RouterConfig
+    from repro_torch.table_api import TableSpec
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.scenarios import POLICY
+
+    zero_counts()
+    t0 = time.perf_counter()
+    loop = serve_closed_loop(
+        TableSpec(**SHARD_SPEC, backend="cuda", resize_policy=dataclasses
+                  .replace(POLICY, min_depth=SHARD_SPEC["initial_depth"])),
+        n_clients=LOOP_CLIENTS, ops_per_client=LOOP_OPS, device=dev,
+        mix="churn", seed=seed, router_config=RouterConfig(**LOOP_CONFIG),
+        handover_at=0.5, handover_spec=TableSpec(
+            **MAIN_SPEC, backend="cuda", resize_policy=dataclasses.replace(
+                POLICY, min_depth=MAIN_SPEC["initial_depth"])))
+    return loop, time.perf_counter() - t0, read_counts()
+
+
 def sharded_serving_path(rng, dev, seed):
     """Routers across placements at the sharded path's geometry: a router
     on a 4-shard ``SHARD_SPEC`` table restored from the main image, its
@@ -3776,9 +3815,7 @@ def sharded_serving_path(rng, dev, seed):
     from repro_torch.serving.router import (Router, RouterConfig,
                                             measure_cost_model)
     from repro_torch.table_api import Table, TableSpec
-    from repro_torch.workloads import serve_closed_loop
     from repro_torch.workloads.chaos import chaos_replay, chaos_setup
-    from repro_torch.workloads.scenarios import POLICY
 
     t_phase = time.perf_counter()
     shard_spec = TableSpec(**SHARD_SPEC, backend="cuda")
@@ -3865,18 +3902,7 @@ def sharded_serving_path(rng, dev, seed):
 
     # C: serve_closed_loop on SHARD_SPEC, handed over onto the local main
     # geometry (the same aggregate bits)
-    zero_counts()
-    t0 = time.perf_counter()
-    loop = serve_closed_loop(
-        TableSpec(**SHARD_SPEC, backend="cuda", resize_policy=dataclasses
-                  .replace(POLICY, min_depth=SHARD_SPEC["initial_depth"])),
-        n_clients=LOOP_CLIENTS, ops_per_client=LOOP_OPS, device=dev,
-        mix="churn", seed=seed, router_config=RouterConfig(**LOOP_CONFIG),
-        handover_at=0.5, handover_spec=TableSpec(
-            **MAIN_SPEC, backend="cuda", resize_policy=dataclasses.replace(
-                POLICY, min_depth=MAIN_SPEC["initial_depth"])))
-    loop_s = time.perf_counter() - t0
-    loop_launches = read_counts()
+    loop, loop_s, loop_launches = stacked_closed_loop(dev, seed)
     add(loop_launches)
     check(loop["ok"] and loop["handovers"] == 1 and loop["dropped"] == 0,
           f"sharded serve_closed_loop: {loop['mismatch_examples']}")
@@ -3938,6 +3964,8 @@ def sharded_serving_path(rng, dev, seed):
               "queue_depths": loop["queue_depths"],
               "total_ms": {k: loop["total"][k]
                            for k in ("p50_ms", "p99_ms", "p999_ms")},
+              "busy_s": loop["busy_s"],
+              "requests_per_service_s": loop["completed"] / loop["busy_s"],
               "launches": loop_launches, "wall_s": loop_s},
           "chaos": {
               "scenario": "chaos_reshard", "seed": seed,
@@ -4868,6 +4896,241 @@ def mesh_table_alone(seed: int = 0):
     return mesh_table_path(keep, np.random.default_rng([seed, 19]), dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: mesh serving — the router, the closed loop and the chaos
+# harness on a one-rank NCCL mesh, every host timing agreed from rank 0
+
+# the forced chaos moves of tests/test_torch_chaos.py's 4- and 8-shard
+# test on meshes, (kind, candidate index) into _respec_candidates(spec,
+# mesh, mesh_for): 4 shards, 8 by handover, a kill/revive of the mesh
+# table, local, a kill/revive of the local table, 8 shards, a torn save of
+# the mesh table, 4 shards with the larger pool
+MESH_MOVES = (("reshard", 4), ("handover", 6), ("kill_revive", 0),
+              ("reshard", 0), ("kill_revive", 0), ("reshard", 7),
+              ("torn_save", 0), ("reshard", 5))
+# chaos_reshard stretched to 6,000 ops (cut from phase 15's 20,000) so
+# that the chaos half stays within 30 s: 8 restores at 16 lanes, each
+# facade call with its collectives
+MESH_CHAOS_OPS = 6_000
+
+
+class AgreeTimer:
+    """Counts and times the router's agreement broadcasts while entered
+    (``router.py``'s ``agree`` wrapped in place): CUDA events and the host
+    clock around each call (the host time includes its ``.tolist()``
+    read)."""
+
+    def __enter__(self):
+        from repro_torch.serving.router import router as R
+        self.saved, self.events, self.host_s = R.agree, [], []
+
+        def timed(*args, **kw):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            e[0].record()
+            out = self.saved(*args, **kw)
+            e[1].record()
+            self.host_s.append(time.perf_counter() - t0)
+            self.events.append(e)
+            return out
+
+        R.agree = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.router import router as R
+        R.agree = self.saved
+
+    def ms(self):
+        torch.cuda.synchronize()
+        dev = [a.elapsed_time(b) for a, b in self.events]
+        return {"calls": len(dev), "device_ms_mean": float(np.mean(dev)),
+                "device_ms_max": float(np.max(dev)),
+                "host_ms_mean": 1e3 * float(np.mean(self.host_s)),
+                "host_ms_max": 1e3 * float(np.max(self.host_s))}
+
+
+def mesh_serving_path(dev, seed):
+    """(a) ``serve_closed_loop`` on a 4-shard ``SHARD_SPEC`` mesh table,
+    its cost model measured on the mesh, handed over halfway onto the
+    2-shard ``SHARD2_SPEC`` on ``default_mesh_for(2)``; (b) ``chaos_replay``
+    of ``chaos_reshard`` with ``mesh_for=default_mesh_for`` and the forced
+    ``MESH_MOVES``. A one-rank NCCL group started here and destroyed at
+    the end. Returns the phase's launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serving.router import RouterConfig
+    from repro_torch.serving.router.router import Router
+    from repro_torch.table_api import TableSpec
+    from repro_torch.workloads import chaos as C
+    from repro_torch.workloads import serve_closed_loop
+    from repro_torch.workloads.scenarios import POLICY
+
+    t_phase = time.perf_counter()
+    check(not dist.is_initialized(), "a process group is still up")
+    mesh = make_local_mesh(device_type=dev.type)
+    builds0 = C.default_mesh_for.builds
+    try:
+        backend = dist.get_backend()
+        check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              f"mesh backend {backend}")
+
+        # (a) the closed loop, 4 shards -> 2 shards across meshes
+        spec = TableSpec(**SHARD_SPEC, backend="cuda",
+                         resize_policy=dataclasses.replace(
+                             POLICY, min_depth=SHARD_SPEC["initial_depth"]))
+        succ = TableSpec(**SHARD2_SPEC, backend="cuda",
+                         resize_policy=dataclasses.replace(
+                             POLICY, min_depth=SHARD2_SPEC["initial_depth"]))
+        mesh2 = C.default_mesh_for(2, succ.n_lanes, dev.type)
+        marks = {}
+        handover = Router.handover
+
+        def marked(self, *args, **kw):
+            marks["before"] = read_counts()
+            handover(self, *args, **kw)
+            marks["handover"] = read_counts()
+
+        zero_counts()
+        Router.handover = marked
+        try:
+            with AgreeTimer() as at:
+                t0 = time.perf_counter()
+                loop = serve_closed_loop(
+                    spec, n_clients=LOOP_CLIENTS, ops_per_client=LOOP_OPS,
+                    device=dev, mix="churn", seed=seed,
+                    router_config=RouterConfig(**LOOP_CONFIG),
+                    handover_at=0.5, handover_spec=succ, mesh=mesh,
+                    handover_mesh=mesh2)
+                loop_s = time.perf_counter() - t0
+            agree_ms = at.ms()
+        finally:
+            Router.handover = handover
+        total = read_counts()
+        before = marks["before"]
+        during = {k: marks["handover"][k] - before[k] for k in total}
+        after = {k: total[k] - marks["handover"][k] for k in total}
+        check(loop["ok"] and loop["handovers"] == 1 and loop["dropped"] == 0
+              and loop["completed"] == loop["admitted"]
+              == LOOP_CLIENTS * LOOP_OPS,
+              f"mesh serve_closed_loop: {loop['mismatch_examples']}")
+        check(loop["agreement_broadcasts"] == loop["dispatches"]
+              == agree_ms["calls"],
+              f"agreement broadcasts {loop['agreement_broadcasts']} for "
+              f"{loop['dispatches']} dispatches ({agree_ms['calls']} timed)")
+        check(len(loop["queue_depths"]) == succ.n_shards,
+              f"queue depths after the handover {loop['queue_depths']}")
+        got = {k for k, v in before.items() if v}
+        check(got == {"fused_probe", "fused_apply"},
+              f"mesh launches before the handover {before}")
+        got = {k for k, v in after.items() if v}
+        check(got == {"probe", "grouped_apply"},
+              f"mesh launches after the handover {after}")
+        loop_launches = total
+
+        # (b) chaos across meshes
+        cspec, trace, _ = C.chaos_setup(
+            "chaos_reshard", placement="sharded", seed=seed,
+            ops=MESH_CHAOS_OPS, kinds=SHARD_CHAOS_KINDS)
+
+        def mesh_for(n):
+            return C.default_mesh_for(n, cspec.n_lanes, dev.type)
+
+        cands = C._respec_candidates(cspec, mesh2, mesh_for)
+        check([c.n_shards if c.placement == "sharded" else 1
+               for c, _ in cands] == [1, 1, 2, 2, 4, 4, 8, 8]
+              and all(m is mesh2 for _, m in cands[2:]),
+              f"mesh chaos candidates {cands}")
+        n = trace.total_steps
+        schedule = tuple(C.ChaosEvent(n * (i + 1) // (len(MESH_MOVES) + 1),
+                                      kind, arg)
+                         for i, (kind, arg) in enumerate(MESH_MOVES))
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = C.chaos_replay(cspec, trace, schedule, device=dev,
+                             mesh=mesh_for(cspec.n_shards),
+                             mesh_for=mesh_for, raise_on_mismatch=False)
+        torch.cuda.synchronize()
+        chaos_s = time.perf_counter() - t0
+        chaos_launches = read_counts()
+        events = rep["events"]
+        check(rep["ok"] and not rep["error_flag"]
+              and rep["status_mismatches"] == rep["content_mismatches"] == 0,
+              f"mesh chaos: {rep['mismatch_examples']}")
+        check(rep["events_skipped"] == 0
+              and [r["kind"] for r in events] == [k for k, _ in MESH_MOVES]
+              and all(r["digest_ok"] for r in events),
+              f"mesh chaos events {events}")
+        check([r["invariant_shards"] for r in events]
+              == [4, 8, 8, 1, 1, 8, 8, 4],
+              f"mesh chaos shard counts {events}")
+        check(next(r for r in events if r["kind"] == "torn_save")
+              ["image_intact"], "mesh torn save")
+        builds = C.default_mesh_for.builds - builds0
+        check(builds == 1, f"{builds} meshes built for one (1, 1) shape")
+    finally:
+        dist.destroy_process_group()
+
+    stacked = LINES["sharded_serving_path"]["closed_loop"]
+    rps = loop["completed"] / loop["busy_s"]
+    launches = {k: loop_launches[k] + chaos_launches[k] for k in total}
+    emit({"phase": "mesh_serving", "gpu": smi_line(),
+          "mesh": {"data": 1, "model": 1}, "backend": backend,
+          "closed_loop": {
+              "spec": SHARD_SPEC, "handover_to": SHARD2_SPEC,
+              "clients": LOOP_CLIENTS, "ops_per_client": LOOP_OPS,
+              "mix": "churn", "ok": loop["ok"],
+              "completed": loop["completed"], "dropped": loop["dropped"],
+              "handovers": loop["handovers"],
+              "status_mismatches": loop["status_mismatches"],
+              "content_mismatches": loop["content_mismatches"],
+              "queue_depths": loop["queue_depths"],
+              "dispatches": loop["dispatches"],
+              "agreement_broadcasts": loop["agreement_broadcasts"],
+              "agreement_ms": agree_ms,
+              "cost_model": loop["cost_model"],
+              "busy_s": loop["busy_s"], "requests_per_service_s": rps,
+              "total_ms": {k: loop["total"][k]
+                           for k in ("p50_ms", "p99_ms", "p999_ms")},
+              "stacked_requests_per_service_s":
+                  stacked["requests_per_service_s"],
+              "stacked_total_ms": stacked["total_ms"],
+              "launches_before_handover": before,
+              "launches_handover": during,
+              "launches_after_handover": after, "wall_s": loop_s},
+          "chaos": {
+              "scenario": "chaos_reshard", "seed": seed,
+              "spec": {k: getattr(cspec, k) for k in (
+                  "placement", "shard_bits", "dmax", "pool_size",
+                  "n_lanes")},
+              "checked_ops": rep["mutations"] + rep["reads"],
+              "steps": rep["steps"],
+              "events": [{k: r.get(k) for k in (
+                  "kind", "step", "to", "invariant_shards", "digest_ok",
+                  "image_intact")} for r in events],
+              "error_flag": rep["error_flag"], "mesh_builds": builds,
+              "launches": chaos_launches, "seconds": chaos_s},
+          "reduced": {"chaos_ops": [SHARD_CHAOS_OPS, MESH_CHAOS_OPS]},
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return launches
+
+
+def mesh_serving_alone(seed: int = 0):
+    """Phase 20 by itself: the kernels built, phase 15's stacked closed
+    loop for the comparison, then ``mesh_serving_path``."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    _build.build_all()
+    loop, loop_s, _ = stacked_closed_loop(dev, seed)
+    check(loop["ok"], "stacked closed loop")
+    LINES["sharded_serving_path"] = {"closed_loop": {
+        "requests_per_service_s": loop["completed"] / loop["busy_s"],
+        "total_ms": {k: loop["total"][k]
+                     for k in ("p50_ms", "p99_ms", "p999_ms")},
+        "wall_s": loop_s}}
+    return mesh_serving_path(dev, seed)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4912,6 +5175,7 @@ def main() -> int:
                                  LINES["training_path"]["smollm"])
     mesh_table = mesh_table_path(sharded_tables,
                                  np.random.default_rng([args.seed, 19]), dev)
+    mesh_serving = mesh_serving_path(dev, args.seed)
     for k in kernels:
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_llm"] = llm[k["name"]]
@@ -4920,6 +5184,7 @@ def main() -> int:
         k["launches_launch_tier"] = launch_tier[k["name"]]
         k["launches_mesh_train"] = mesh_train[k["name"]]
         k["launches_mesh_table"] = mesh_table[k["name"]]
+        k["launches_mesh_serving"] = mesh_serving[k["name"]]
     print(smi_line(), flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -35,7 +35,10 @@ Two rules keep the ranks in step. No collective runs inside ``apply_fn``
 (the plan's transaction, the policy's passes, the slow path's split
 rounds): those loop a rank-local number of times. And every host decision
 that gates a collective reads a value every rank holds equal: a batch
-length, or a result taken after the ``model`` reduction.
+length, or a result taken after the ``model`` reduction. A host timing
+that a decision rests on (the router's service times and clock, the cost
+model it batches by) differs from rank to rank, so it is rank 0's,
+broadcast (:func:`agree`).
 
 The state is a :class:`~repro_torch.core.table.TableState` whose every
 field has a leading shard axis (``[n_shards]`` stacked, ``[k]`` on a
@@ -180,6 +183,21 @@ def reduce_model(cfg: DistConfig, x: torch.Tensor, mesh,
     if mesh is None:
         return x
     return _all_reduce(x.clone(), op, mesh_axes(cfg, mesh).model_group)
+
+
+def agree(values, mesh) -> list:
+    """Global rank 0's ``values`` (floats: host timings, a fitted model)
+    on every rank of ``mesh``'s run: one float64 broadcast over the
+    process group, a CUDA tensor under NCCL. Host decisions that rest on
+    them then come out equal on every rank. ``values`` themselves off a
+    mesh."""
+    if mesh is None:
+        return list(values)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    x = torch.tensor(values, dtype=torch.float64, device=dev)
+    dist.broadcast(x, src=0)
+    return x.tolist()
 
 
 def gather_shards(cfg: DistConfig, state: T.TableState, mesh,

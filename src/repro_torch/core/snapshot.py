@@ -381,20 +381,30 @@ def restore_from_image(image: TableImage, spec: TableSpec, device=None,
 # facade entry points (Table.save / Table.restore delegate here)
 
 
-def save_table(table, path: str) -> str:
+def save_table(table, path: str, mesh=None) -> str:
     """Serialize ``table`` to a durable image file at ``path``. Every rank
-    of a mesh table calls this: global rank 0 writes the file, and no rank
-    returns before it is written."""
+    of a mesh table calls this, and so does every rank of ``mesh`` (the
+    run's mesh) that holds a local ``table`` as a replica: global rank 0
+    writes the file, alone, and no rank returns before it is written. If
+    rank 0's write raises, every rank raises the same exception."""
     image = extract_image(table)
-    if table.mesh is None:
+    mesh = table.mesh if table.mesh is not None else mesh
+    if mesh is None:
         return save_image(image, path)
     import torch.distributed as dist
+    failed = [None]
     if dist.get_rank() == 0:
-        save_image(image, path)
-    if table.device.type == "cuda":
-        dist.barrier(device_ids=[table.device.index])
-    else:
-        dist.barrier()
+        try:
+            save_image(image, path)
+        except Exception as e:  # noqa: BLE001 — every rank raises it below
+            failed[0] = e
+    # rank 0's outcome, broadcast once it is known: the other ranks wait
+    # here for the file, and none is left at a barrier rank 0 skipped
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else None)
+    dist.broadcast_object_list(failed, src=0, device=dev)
+    if failed[0] is not None:
+        raise failed[0]
     return path
 
 

@@ -260,20 +260,22 @@ def _mean_s(run: Callable[[TileConfig], None], tiles: TileConfig,
 def autotune(key: str, candidates: Iterable[TileConfig],
              run: Callable[[TileConfig], None], iters: int = 5, *,
              backend_tag: str = "", use_cache: bool = True,
-             path: Optional[Path] = None, device="cpu") -> TileConfig:
+             path: Optional[Path] = None, device=None) -> TileConfig:
     """Measured tile sweep with an on-disk cache per ``(backend, key)``.
 
     On a cache hit the runner is never called: the persisted winner is
     registered and returned. On a miss each candidate is warmed by one
-    ``run`` call and timed over ``iters`` more on ``device`` (see
-    :func:`_mean_s`); the fastest is registered, persisted with
+    ``run`` call and timed over ``iters`` more on ``device`` (default
+    ``"cuda"``; see :func:`_mean_s`); the fastest is registered, persisted with
     ``{tiles, mean_s, iters, measured_at}`` and returned. A candidate that
     raises loses the sweep; if every candidate raises, so does
     ``autotune`` (a kernel that cannot launch is not hidden behind the
     default). ``backend_tag`` defaults to :func:`device_tag` of
     ``device``. Each runner call adds one to ``autotune.runner_calls``."""
+    from repro_torch.core.table import resolve_device
+
     validate_key(key)
-    device = torch.device(device)
+    device = resolve_device(device)
     tag = backend_tag or device_tag(device)
     path = path or cache_path()
     if use_cache:

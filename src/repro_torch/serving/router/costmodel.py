@@ -80,11 +80,15 @@ _CACHE: Dict[Tuple, CostModel] = {}
 def _cache_key(table) -> Tuple:
     # keyed on the RESOLVED KernelPlan and the device type, not the
     # requested backend string: "auto" on the CPU and on the card are
-    # different dispatches and must be measured apart
+    # different dispatches and must be measured apart; on the shard count,
+    # as the JAX key is; and on the mesh's shape (None off a mesh), so a
+    # mesh table, whose calls run collectives, is measured apart from its
+    # stacked copy
     spec, dev = table.spec, table.device.type
+    shape = None if table.mesh is None else tuple(table.mesh.mesh.shape)
     return (dev, spec.placement, spec.n_lanes, spec.bucket_size,
-            spec.pool_size, spec.dmax, spec.resize_policy is not None,
-            spec.plan(dev))
+            spec.pool_size, spec.dmax, spec.shard_bits,
+            spec.resize_policy is not None, shape, spec.plan(dev))
 
 
 def measure_cost_model(table, max_chunks: int = 8, repeats: int = 3,
@@ -98,11 +102,17 @@ def measure_cost_model(table, max_chunks: int = 8, repeats: int = 3,
     untimed first (on the card that builds the kernels and warms the
     allocator). Each timed dispatch ends in a ``.cpu()`` read of its
     statuses, the router's own synchronization point. The scratch table
-    is freed before this returns."""
+    is freed before this returns.
+
+    On a mesh the scratch table is built on the table's mesh and every
+    rank runs the timed dispatches (they are collective); the fitted
+    ``(base_s, chunk_s)`` are global rank 0's, broadcast to every rank
+    (``core/dist.py::agree``), so every rank's router batches alike."""
+    from repro_torch.core.dist import agree
     from repro_torch.table_api import Table
 
     spec = table.spec
-    scratch = Table.create(spec, table.device)
+    scratch = Table.create(spec, table.device, table.mesh)
     n = spec.n_lanes
     sizes = (n, n * max(2, max_chunks))
 
@@ -127,14 +137,16 @@ def measure_cost_model(table, max_chunks: int = 8, repeats: int = 3,
     k_many = sizes[1] // n
     chunk_s = max((t_many - t_one) / (k_many - 1), 1e-9)
     base_s = max(t_one - chunk_s, 0.0)
+    base_s, chunk_s = agree([base_s, chunk_s], table.mesh)
     return CostModel(base_s=base_s, chunk_s=chunk_s, n_lanes=n)
 
 
 def cost_model_for(table, use_cache: bool = True,
                    **measure_kw) -> CostModel:
     """Measured model for the table's (device, plan), cached per spec
-    shape so routers over identical specs (tests, handover successors)
-    measure once per process."""
+    shape and mesh shape so routers over identical specs (tests, handover
+    successors) measure once per process. On a mesh every rank calls
+    this, and every rank's cache holds the same keys."""
     key = _cache_key(table)
     if use_cache and key in _CACHE:
         return _CACHE[key]

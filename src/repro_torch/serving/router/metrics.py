@@ -125,6 +125,7 @@ class RouterMetrics:
     handovers: int = 0
     dropped: int = 0             # MUST stay 0 (rolling upgrade invariant)
     peak_pressure: float = 0.0
+    busy_s: float = 0.0          # service seconds summed over dispatches
 
     def record_complete(self, t_submit: float, t_dispatch: float,
                         t_complete: float) -> None:
@@ -157,6 +158,7 @@ class RouterMetrics:
             "handovers": self.handovers,
             "dropped": self.dropped,
             "peak_pressure": round(self.peak_pressure, 4),
+            "busy_s": self.busy_s,
             "queue_wait": self.queue_wait.summary(),
             "service": self.service.summary(),
             "total": self.total.summary(),

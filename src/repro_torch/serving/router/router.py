@@ -41,6 +41,19 @@ time covers the device work. The router is single-threaded and
 clock-injected: "time" is whatever the caller passes (wall clock by
 default, a virtual clock in the closed-loop driver), which keeps every
 latency experiment deterministic and the differential oracle replayable.
+
+**On a mesh of ranks** (the table's ``DeviceMesh``, kept as the run's
+mesh when a handover lands on a local replica) every rank runs the
+same router on the same global request stream, and every branch is a
+function of what is equal on every rank: the queues and the config (by
+construction), ``pressure`` (``policy_stats`` is reduced over ``model``),
+the cost model (rank 0's fit, broadcast) and the times the router reads.
+Each time read from the host — a dispatch's service time after its
+``.cpu()`` reads, and ``clock()`` when the caller passes no ``now`` — is
+global rank 0's, broadcast (``core/dist.py::agree``; counted in
+``agreements``). So every rank batches, sheds and defers the same
+requests, the facade's collectives see the same shapes, and ``report()``
+is the same everywhere.
 """
 from __future__ import annotations
 
@@ -50,6 +63,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.dist import agree
 from repro_torch.serving.router import queue as Q
 from repro_torch.serving.router.costmodel import CostModel, cost_model_for
 from repro_torch.serving.router.metrics import RouterMetrics
@@ -90,7 +104,9 @@ class Router:
     The router owns the only live reference to its table: the port's
     writes consume the handle they are called on, and ``router.table`` is
     always the latest post-transaction handle (it swaps wholesale on
-    :meth:`handover`)."""
+    :meth:`handover`). ``mesh`` is the run's mesh, over which the host
+    timings are agreed: the table's, and after a handover onto a local
+    replica in a mesh run, still the run's."""
 
     def __init__(self, table, config: RouterConfig = RouterConfig(),
                  cost_model: Optional[CostModel] = None,
@@ -102,6 +118,10 @@ class Router:
         self.table = table
         self.config = config
         self.clock = clock
+        self.mesh = table.mesh
+        # host readings broadcast from rank 0 (one per dispatch, one per
+        # clock() reading); 0 off a mesh
+        self.agreements = 0
         self.cost_model = cost_model or cost_model_for(table)
         self.queues = ShardQueues(spec.n_shards, config.max_queue_per_shard)
         self.metrics = RouterMetrics()
@@ -118,6 +138,16 @@ class Router:
         if self.on_event is not None:
             self.on_event(name, info)
 
+    def _agreed(self, seconds: float) -> float:
+        """A host reading, global rank 0's on a mesh (one broadcast)."""
+        if self.mesh is None:
+            return seconds
+        self.agreements += 1
+        return agree([seconds], self.mesh)[0]
+
+    def _now(self, now: Optional[float]) -> float:
+        return self._agreed(self.clock()) if now is None else now
+
     # -- derived control values -------------------------------------------
 
     @property
@@ -133,12 +163,14 @@ class Router:
         The facade pads any m-op batch to a whole number of n_lanes-wide
         chunks, so there is one shape per chunk count up to ``max_batch``
         (for apply and for lookup). Running each once on a scratch table
-        of the same spec and device builds the kernels and warms the
-        allocator outside the serving path's latency tails; the scratch
-        table is freed before this returns."""
+        of the same spec and device (and mesh: the communicators are
+        built here too) builds the kernels and warms the allocator outside
+        the serving path's latency tails; the scratch table is freed
+        before this returns."""
         from repro_torch.table_api import Table
 
-        scratch = Table.create(self.table.spec, self.table.device)
+        scratch = Table.create(self.table.spec, self.table.device,
+                               self.table.mesh)
         n = self.table.spec.n_lanes
         top = -(-self.config.max_batch // n) * n
         for m in range(n, top + 1, n):
@@ -158,7 +190,7 @@ class Router:
         result lands on the same object when its batch completes."""
         if kind not in (Q.READ, Q.INS, Q.DEL):
             raise ValueError(f"request kind {kind!r} not in READ/INS/DEL")
-        now = self.clock() if now is None else now
+        now = self._now(now)
         self.metrics.submitted += 1
         if kind != Q.READ and self.pressure >= self.config.pressure_shed:
             self.metrics.shed_pressure += 1
@@ -189,7 +221,7 @@ class Router:
              force: bool = False) -> List[Request]:
         """Dispatch if the batcher says so; returns completed requests in
         linearization order (mutations in lane order, then reads)."""
-        now = self.clock() if now is None else now
+        now = self._now(now)
         if not force and not self.should_dispatch(now):
             # idle under pressure: drain the policy backlog so shedding
             # is transient (all-NOP rounds run split/merge maintenance)
@@ -206,7 +238,7 @@ class Router:
         """Drain everything (deferred writes included): repeated forced
         dispatches until the queues are empty. Used by drains, upgrades
         and end-of-trace."""
-        now = self.clock() if now is None else now
+        now = self._now(now)
         out: List[Request] = []
         while len(self.queues):
             done = self._dispatch(now, ignore_pressure=True)
@@ -254,7 +286,7 @@ class Router:
             found, vals_out = self.table.lookup(qkeys)
             found = found.cpu().numpy()
             vals_out = vals_out.cpu().numpy()
-        service_s = time.perf_counter() - wall0
+        service_s = self._agreed(time.perf_counter() - wall0)
         t_done = now + service_s
 
         for lane, r in enumerate(writes):
@@ -268,6 +300,7 @@ class Router:
             self.metrics.record_complete(r.t_submit, now, t_done)
 
         self.metrics.dispatches += 1
+        self.metrics.busy_s += service_s
         self.metrics.dispatched_ops += len(writes)
         self.metrics.lookup_ops += len(reads)
         if self.table.spec.resize_policy is not None:
@@ -303,20 +336,23 @@ class Router:
 
     # -- rolling upgrade ---------------------------------------------------
 
-    def handover(self, new_spec, device=None, warmup: bool = True,
+    def handover(self, new_spec, device=None, mesh=None, warmup: bool = True,
                  remeasure_cost: bool = False) -> None:
         """Drain-free rolling upgrade onto a successor table.
 
         The live table's logical content travels through its canonical
         in-memory image (``repro_torch.core.snapshot``) into a fresh table
         built for ``new_spec`` on ``device`` (default: the live table's
-        device). Queued and deferred requests are **retained verbatim**,
-        in order, re-homed under the successor's shards, and complete
-        against the successor; the zero-dropped invariant is checked here
-        and tracked in ``metrics.dropped``. ``new_spec`` may change
-        pool/depth sizing, lane width, backend, placement or shard count;
-        an infeasible target raises ``ValueError`` before the swap,
-        leaving the predecessor serving."""
+        device), or on ``mesh`` (a sharded ``new_spec``; every rank calls
+        this). Without ``mesh`` in a mesh run the successor is a local
+        replica on every rank and the router keeps the run's mesh. Queued
+        and deferred requests are **retained verbatim**, in order,
+        re-homed under the successor's shards, and complete against the
+        successor; the zero-dropped invariant is checked here and tracked
+        in ``metrics.dropped``. ``new_spec`` may change pool/depth sizing,
+        lane width, backend, placement, shard count or mesh; an infeasible
+        target raises ``ValueError`` before the swap, leaving the
+        predecessor serving."""
         from repro_torch.core import snapshot
 
         depth_before = len(self.queues)
@@ -324,14 +360,20 @@ class Router:
         self._emit("handover_begin", n_items=image.n_items,
                    queued=depth_before)
         successor = snapshot.restore_from_image(
-            image, new_spec, self.table.device if device is None else device)
+            image, new_spec, self.table.device if device is None else device,
+            mesh)
         self.table = successor
+        if mesh is not None:
+            self.mesh = mesh
         self.queues.rehome(new_spec)
         if warmup:
             # run the successor spec's dispatch shapes during the cutover,
             # not under the first post-upgrade requests
             self.warmup()
-        if remeasure_cost:
+        if remeasure_cost and (successor.mesh is not None
+                               or self.mesh is None):
+            # a local replica in a mesh run keeps the agreed model: each
+            # rank's own fit of it would differ
             self.cost_model = cost_model_for(successor)
         if len(self.queues) != depth_before:
             raise RuntimeError("handover dropped requests")
@@ -364,6 +406,7 @@ class Router:
         }
         out["queue_depths"] = self.queues.depths()
         out["pressure"] = round(self.pressure, 4)
+        out["agreement_broadcasts"] = self.agreements
         return out
 
 

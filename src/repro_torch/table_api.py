@@ -351,12 +351,15 @@ class Table:
 
     # -- durable images (core/snapshot.py) ---------------------------------
 
-    def save(self, path: str) -> str:
+    def save(self, path: str, mesh=None) -> str:
         """Serialize to a canonical, layout-independent image file, the
         JAX package's format: the items in logical-bucket order, payload
         fields resolved (schema mode), and the policy counters under a
-        versioned header. Returns ``path``."""
-        return snapshot.save_table(self, path)
+        versioned header. Returns ``path``. A mesh table's ranks all call
+        this, and global rank 0 writes the file; so do the ranks of
+        ``mesh`` (the run's mesh) when each holds this local table as a
+        replica."""
+        return snapshot.save_table(self, path, mesh)
 
     @classmethod
     def restore(cls, path: str, spec: TableSpec, device=None,

@@ -11,10 +11,12 @@ while the oracle — the surviving truth — runs uninterrupted:
 * ``kill_revive``  — serialize to a durable on-disk image, drop the
   handle, restore under the same spec (the snapshot path);
 * ``reshard``      — save/restore under a *different* geometry: local ↔
-  sharded flips and shard-count changes (over the ``shard_counts`` the
-  caller names; every shard lives on the table's one device) plus pool
-  resizes. Candidates preserve the aggregate hash bits
-  (``dmax + shard_bits``), so the oracle's group addressing never moves;
+  sharded flips and shard-count changes (onto the meshes of
+  ``mesh_for``, :func:`default_mesh_for` over the process group's ranks;
+  or stacked, every shard on the table's one device, over the
+  ``shard_counts`` the caller names) plus pool resizes. Candidates
+  preserve the aggregate hash bits (``dmax + shard_bits``), so the
+  oracle's group addressing never moves;
 * ``policy_flap``  — rebuild the handle with a different
   :class:`~repro_torch.core.policy.ResizePolicy`: watermark band swaps,
   budget starvation, detach/reattach. Content-transparent by contract, so
@@ -42,6 +44,15 @@ Failing seeds reproduce from the command line and shrink::
 
     python -m repro_torch.workloads.chaos --scenario chaos_reshard --seed 17
 
+Under ``torchrun`` (or with ``RANK`` / ``WORLD_SIZE`` set and
+``--dist-init file:///path`` for gloo ranks on the CPU) every rank runs
+the same seeds on meshes of the process group's ranks
+(``--placement sharded`` starts on ``default_mesh_for(n_shards)``), and
+rank 0 alone prints and writes the artifact::
+
+    torchrun --nproc-per-node 4 -m repro_torch.workloads.chaos \\
+        --scenario chaos_reshard --placement sharded --seed 5
+
 On failure the schedule is reduced to a minimal failing prefix (binary
 search for the shortest failing prefix, then greedy single-event
 elimination — ddmin-style, exact under monotone failures) and a JSON
@@ -63,7 +74,6 @@ import json
 import math
 import os
 import sys
-import tempfile
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,33 +156,102 @@ def _agg_bits(spec) -> int:
     return spec.dmax + (spec.shard_bits if spec.placement == "sharded" else 0)
 
 
-def _respec_candidates(spec, shard_counts=None) -> List[object]:
-    """Successor specs for reshard/handover events, the JAX package's list
-    in its order: local at the aggregate bits with two pool sizes, then
-    each of ``shard_counts`` (powers of two, the JAX package's mesh
-    factory's 2 / 4 / 8) at ``bits - shard_bits`` with two pool sizes.
-    Without ``shard_counts`` a sharded table keeps its shard count and
+def _mesh_shape(n_shards: int, n_lanes: int, world: int):
+    """``(data, model)`` of :func:`default_mesh_for`'s mesh over ``world``
+    ranks, or None (a table's shard count is a power of two)."""
+    if n_shards < 2 or n_shards & (n_shards - 1):
+        return None
+    model = math.gcd(world, n_shards)
+    data = world // model
+    if n_lanes % data:
+        return None
+    return data, model
+
+
+# meshes by (shape, device type), each beside the process group it was
+# built over: an N -> M move back onto a shape reuses its communicators
+_MESHES: Dict[Tuple, Tuple[object, object]] = {}
+
+
+def default_mesh_for(n_shards: int, n_lanes: int = 16,
+                     device_type: str = "cuda"):
+    """Mesh factory over this process group's ranks, the counterpart of
+    the JAX package's (one process a rank; every rank calls it): a
+    ``(data, model)`` mesh with ``model = gcd(world, n_shards)`` and
+    ``data = world / model`` (``launch/mesh.py::make_local_mesh``), or
+    None for fewer than 2 shards or when ``data`` does not divide
+    ``n_lanes`` (the candidate is skipped). Where the JAX factory returns a
+    mesh for the same device count the shape is the same; where it
+    returns None for want of devices, this one puts ``n_shards / model``
+    shards on each rank (``TableSpec.check_mesh``). Without a process
+    group the world is one rank, and ``make_local_mesh`` starts its group.
+    Meshes are cached per shape and process group;
+    ``default_mesh_for.builds`` counts the ones built."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = _mesh_shape(n_shards, n_lanes, world)
+    if shape is None:
+        return None
+    key = (shape, device_type)
+    hit = _MESHES.get(key)
+    if (hit is not None and dist.is_initialized()
+            and hit[0] is dist.group.WORLD):
+        return hit[1]
+    mesh = make_local_mesh(model=shape[1], data=shape[0],
+                           device_type=device_type)
+    default_mesh_for.builds += 1
+    _MESHES[key] = (dist.group.WORLD, mesh)
+    return mesh
+
+
+default_mesh_for.builds = 0
+
+
+def _respec_candidates(spec, mesh=None, mesh_for=None,
+                       shard_counts=None) -> List[Tuple[object, object]]:
+    """Successor ``(spec, mesh)`` pairs for reshard/handover events, the
+    JAX package's list in its order: local at the aggregate bits with two
+    pool sizes (no mesh), then 2 / 4 / 8 shards at ``bits - shard_bits``
+    with two pool sizes, each on ``mesh_for(n_shards)`` (skipped where it
+    returns None). Without ``mesh_for``, ``shard_counts`` (powers of two)
+    names the shard counts of stacked candidates (every shard on the
+    table's one device; the JAX package's 8-device factory hosts 2 / 4 /
+    8); without either a sharded table keeps its shard count and mesh and
     varies only the pool. Every candidate preserves the aggregate hash
     bits, so a local dmax=b table, a 2-shard dmax=b-1 table and a 4-shard
     dmax=b-2 table are all the same logical address space — the oracle
     never needs to re-bit."""
     bits = _agg_bits(spec)
     pools = (spec.pool_size, spec.pool_size + 256)
-    out = [dataclasses.replace(spec, placement="local", dmax=bits,
-                               pool_size=pool) for pool in pools]
-    if shard_counts is not None:
+    out = [(dataclasses.replace(spec, placement="local", dmax=bits,
+                                pool_size=pool), None) for pool in pools]
+
+    def sharded(sb, m):
+        return [(dataclasses.replace(spec, placement="sharded",
+                                     shard_bits=sb, dmax=bits - sb,
+                                     pool_size=pool), m) for pool in pools]
+
+    if mesh_for is not None:
+        for sb in (1, 2, 3):
+            if bits - sb < 1:
+                continue
+            m = mesh_for(1 << sb)
+            if m is not None:
+                out += sharded(sb, m)
+    elif shard_counts is not None:
         for n in shard_counts:
             sb = n.bit_length() - 1
             if n < 2 or n != 1 << sb:
                 raise ValueError(f"shard count {n} is not a power of two "
                                  f">= 2")
-            if bits - sb < 1:
-                continue
-            out += [dataclasses.replace(spec, placement="sharded",
-                                        shard_bits=sb, dmax=bits - sb,
-                                        pool_size=pool) for pool in pools]
+            if bits - sb >= 1:
+                out += sharded(sb, None)
     elif spec.placement == "sharded":
-        out += [dataclasses.replace(spec, pool_size=pool) for pool in pools]
+        out += [(dataclasses.replace(spec, pool_size=pool), mesh)
+                for pool in pools]
     return out
 
 
@@ -249,6 +328,8 @@ def chaos_replay(
     trace,
     schedule: Sequence[ChaosEvent],
     device=None,
+    mesh=None,
+    mesh_for: Optional[Callable[[int], object]] = None,
     shard_counts: Optional[Sequence[int]] = None,
     check: bool = True,
     oracle: str = "streaming",
@@ -258,7 +339,8 @@ def chaos_replay(
     _inject_digest_step: Optional[int] = None,
 ) -> dict:
     """Replay ``trace`` on a fresh ``spec`` table on ``device`` (default
-    ``"cuda"``) while firing ``schedule``'s events between steps.
+    ``"cuda"``), or on ``mesh``, while firing ``schedule``'s events
+    between steps.
 
     Differential checks mirror :func:`repro_torch.workloads.replay.replay`
     (per-lane statuses and per-read parity in linearization order against
@@ -266,10 +348,20 @@ def chaos_replay(
     harness checks the structural invariants and digest-exact content
     parity. ``oracle`` is ``"streaming"`` (default — O(1)/op, so
     million-op chaos traces stay checkable) or ``"both"`` (adds the
-    materializing cross-check per op). ``shard_counts`` (e.g. ``(2, 4,
-    8)``) are the shard counts cross-placement re-shard candidates may
-    take; without it, re-shards keep the placement and shard count and
-    change the pool.
+    materializing cross-check per op). ``mesh_for(n_shards)`` supplies
+    meshes for cross-placement re-shard candidates
+    (:func:`default_mesh_for`); without it, ``shard_counts`` (e.g. ``(2,
+    4, 8)``) are the shard counts stacked candidates may take; without
+    either, re-shards keep the placement and shard count and change the
+    pool.
+
+    On a mesh of ranks every rank runs this with the same arguments: the
+    work directory is rank 0's (``replay.py::_shared_dir``), global rank 0
+    alone writes each image (a local table is then a replica on every
+    rank, saved once), restores and handovers land on the successor's mesh,
+    the error flag and the checks read the whole table, and every rank
+    returns the same report. The run's mesh is ``mesh``, or for a run that
+    starts local the first of ``mesh_for``'s.
 
     ``_inject_digest_step`` is a self-test knob: it corrupts the oracle
     digest after the given step so the failure/shrink/artifact path can be
@@ -277,6 +369,7 @@ def chaos_replay(
     from repro_torch.core import invariants as I
     from repro_torch.core import snapshot as S
     from repro_torch.table_api import Table
+    from repro_torch.workloads.replay import _shared_dir
 
     if spec.value_schema is not None:
         raise ValueError("chaos drives the raw i32 value mode")
@@ -290,8 +383,12 @@ def chaos_replay(
         refs.append(oracle_for(spec, "streaming"))
     stream_ref = refs[-1] if refs else None
 
-    table = Table.create(spec, device)
+    table = Table.create(spec, device, mesh)
     device = table.device
+    run_mesh = mesh
+    if run_mesh is None and mesh_for is not None:
+        run_mesh = next((m for m in map(mesh_for, (2, 4, 8))
+                         if m is not None), None)
     base_agg = _agg_bits(spec)
     error_seen = False
     steps = mutations = reads = 0
@@ -315,19 +412,28 @@ def chaos_replay(
             raise ReplayMismatch(f"{kind} mismatch: {detail}")
 
     def flag() -> bool:
-        return bool(table.state.error.any().cpu())
+        # any shard's, reduced over a mesh table's ranks
+        return bool(table._error())
+
+    def save(path: str) -> str:
+        # one writer: rank 0 on a mesh table or a replica in a mesh run
+        return table.save(path, run_mesh)
 
     def rebuild(new_spec) -> None:
         # policy flaps and backend swaps are content-transparent: same
         # state tensors, new static metadata — no copy, no device work
         nonlocal table, spec
         table = Table(new_spec, table.device, table.state, table.slabs,
-                      table.slab_live, table.seq)
+                      table.slab_live, table.seq, table.mesh)
         spec = new_spec
 
     def post_event_checks(rec: dict) -> None:
-        # a stacked sharded state is checked shard by shard
+        # a stacked sharded state is checked shard by shard: the rank's
+        # own shards, and on a mesh the whole gathered stack too
         I.check_invariants(spec.table_config(), table.state, allow_error=True)
+        if table.mesh is not None:
+            I.check_invariants(spec.table_config(), I.full_view(table),
+                               allow_error=True)
         rec["invariant_shards"] = spec.n_shards
         if stream_ref is not None:
             image = S.extract_image(table)
@@ -348,7 +454,7 @@ def chaos_replay(
                 )
 
     def fire(ev: ChaosEvent, workdir: str, idx: int) -> None:
-        nonlocal table, spec, error_seen
+        nonlocal table, spec, mesh, error_seen
         rec: Dict[str, object] = {
             "step": steps,
             "kind": ev.kind,
@@ -357,12 +463,12 @@ def chaos_replay(
         }
         if ev.kind == "kill_revive":
             error_seen |= flag()
-            path = table.save(os.path.join(workdir, f"ev{idx}.npz"))
+            path = save(os.path.join(workdir, f"ev{idx}.npz"))
             del table
-            table = Table.restore(path, spec, device)
+            table = Table.restore(path, spec, device, mesh)
         elif ev.kind in ("reshard", "handover"):
-            cands = _respec_candidates(spec, shard_counts)
-            new_spec = cands[ev.arg % len(cands)]
+            cands = _respec_candidates(spec, mesh, mesh_for, shard_counts)
+            new_spec, new_mesh = cands[ev.arg % len(cands)]
             if _agg_bits(new_spec) != base_agg:
                 raise AssertionError(f"{new_spec} moved off {base_agg} bits")
             rec["to"] = {
@@ -373,10 +479,10 @@ def chaos_replay(
             }
             error_seen |= flag()
             if ev.kind == "reshard":
-                path = table.save(os.path.join(workdir, f"ev{idx}.npz"))
+                path = save(os.path.join(workdir, f"ev{idx}.npz"))
                 try:
-                    table = Table.restore(path, new_spec, device)
-                    spec = new_spec
+                    table = Table.restore(path, new_spec, device, new_mesh)
+                    spec, mesh = new_spec, new_mesh
                 except ValueError as e:  # infeasible target: predecessor lives on
                     rec["skipped"] = True
                     rec["reason"] = str(e)[:200]
@@ -395,14 +501,14 @@ def chaos_replay(
                     on_event=lambda name, info: seen.append(name),
                 )
                 try:
-                    router.handover(new_spec, warmup=False)
+                    router.handover(new_spec, mesh=new_mesh, warmup=False)
                 except ValueError as e:
                     rec["skipped"] = True
                     rec["reason"] = str(e)[:200]
                     table = router.table  # unchanged: handover failed pre-swap
                 else:
                     table = router.table
-                    spec = new_spec
+                    spec, mesh = new_spec, new_mesh
                     if not (router.metrics.handovers == 1
                             and router.metrics.dropped == 0
                             and "handover_begin" in seen
@@ -431,7 +537,7 @@ def chaos_replay(
             rebuild(dataclasses.replace(spec, backend=backend))
         elif ev.kind == "torn_save":
             path = os.path.join(workdir, f"ev{idx}_torn.npz")
-            table.save(path)  # intact victim image
+            save(path)  # intact victim image
             want = S.load_image(path)
             want_digest = content_digest(want.keys, want.values)
 
@@ -444,7 +550,7 @@ def chaos_replay(
             torn = False
             try:
                 try:
-                    table.save(path)  # overwrite attempt dies mid-save
+                    save(path)  # overwrite attempt dies mid-save
                 except S.InjectedFault:
                     torn = True
             finally:
@@ -466,7 +572,8 @@ def chaos_replay(
                 )
             error_seen |= flag()
             del table
-            table = Table.restore(path, spec, device)  # revive from the survivor
+            # revive from the survivor
+            table = Table.restore(path, spec, device, mesh)
         else:  # pragma: no cover - gen_schedule validates kinds
             raise ValueError(f"unknown chaos event kind {ev.kind!r}")
         post_event_checks(rec)
@@ -476,7 +583,7 @@ def chaos_replay(
             # trajectory so the jump is not miscounted as elasticity
             depth_traj.append(int(table.depth()))
 
-    with tempfile.TemporaryDirectory() as workdir:
+    with _shared_dir(run_mesh) as workdir:
         for step in gen_steps(trace):
             while next_ev < len(pending) and pending[next_ev].step <= steps:
                 fire(pending[next_ev], workdir, next_ev)
@@ -724,10 +831,68 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         default="chaos_failure.json",
         help="where to write the failing-seed artifact",
     )
+    ap.add_argument("--dist-init", default="env://",
+                    help="process-group init method when RANK and "
+                    "WORLD_SIZE are set: env:// (torchrun) or file:///path")
     ap.add_argument("--self-test-fail", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     kinds = tuple(k.strip() for k in args.kinds.split(",") if k.strip())
+    spec0, _, _ = chaos_setup(args.scenario, placement=args.placement,
+                              seed=args.seed)
+    started, device = _start_group(args.device, args.dist_init)
+    try:
+        return _cli_runs(args, kinds, spec0, device)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _start_group(device: str, init_method: str):
+    """``(started, device)``: with ``RANK`` / ``WORLD_SIZE`` set, a
+    process group started here as ``launch/train.py`` starts one (NCCL on
+    ``cuda:LOCAL_RANK``, gloo otherwise); a group already started is used
+    as it is; with neither, no group."""
+    import torch
+    import torch.distributed as dist
+
+    kind = torch.device(device).type
+    if kind == "cuda" and (dist.is_initialized() or "RANK" in os.environ):
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        torch.cuda.set_device(torch.device(device))
+    if dist.is_initialized() or "RANK" not in os.environ:
+        return False, device
+    dist.init_process_group(
+        "nccl" if kind == "cuda" else "gloo", init_method=init_method,
+        rank=int(os.environ["RANK"]),
+        world_size=int(os.environ["WORLD_SIZE"]))
+    return True, device
+
+
+def _cli_runs(args, kinds, spec0, device) -> int:
+    """The CLI's seeds: on meshes of the process group's ranks when one is
+    up (rank 0 alone prints and writes the artifact), else stacked."""
+    import torch
+    import torch.distributed as dist
+
+    mesh = mesh_for = None
+    lead = True
+    if dist.is_initialized():
+        kind = torch.device(device).type
+        lead = dist.get_rank() == 0
+
+        def mesh_for(n):
+            return default_mesh_for(n, spec0.n_lanes, kind)
+
+        if args.placement == "sharded":
+            mesh = mesh_for(spec0.n_shards)
+            if mesh is None:
+                if lead:
+                    print(f"[chaos] cannot lay {spec0.n_shards} shards of "
+                          f"{spec0.n_lanes} lanes on "
+                          f"{dist.get_world_size()} ranks", file=sys.stderr)
+                return 2
     failures = []
     for seed in range(args.seed, args.seed + args.seeds):
         spec, trace, schedule = chaos_setup(
@@ -745,9 +910,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 spec,
                 trace,
                 events,
-                device=args.device,
-                # every shard count the JAX package's 8-device mesh
-                # factory hosts is hostable on the one device
+                device=device,
+                mesh=mesh,
+                mesh_for=mesh_for,
+                # stacked, every shard count the JAX package's 8-device
+                # mesh factory hosts is hostable on the one device
                 shard_counts=(2, 4, 8),
                 oracle=args.oracle,
                 raise_on_mismatch=False,
@@ -755,20 +922,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             )
 
         rep = run(schedule)
-        print(f"[chaos] {args.scenario}/{args.placement}/{rep['device']} "
-              f"seed={seed}: "
-              f"{_summary(rep)}")
+        if lead:
+            print(f"[chaos] {args.scenario}/{args.placement}/"
+                  f"{rep['device']} seed={seed}: {_summary(rep)}")
         if rep["ok"]:
             continue
         failures.append(seed)
         shrunk = None
         if args.shrink:
+            # every rank shrinks: each trial run is collective on a mesh
             shrunk = shrink_schedule(lambda evs: not run(evs)["ok"], schedule)
-            print(
-                f"[chaos] seed {seed} shrunk: {len(schedule)} -> "
-                f"{len(shrunk)} events: "
-                f"{[[e.step, e.kind, e.arg] for e in shrunk]}"
-            )
+            if lead:
+                print(f"[chaos] seed {seed} shrunk: {len(schedule)} -> "
+                      f"{len(shrunk)} events: "
+                      f"{[[e.step, e.kind, e.arg] for e in shrunk]}")
+        if not lead:
+            continue
         artifact = {
             "scenario": args.scenario,
             "placement": args.placement,

@@ -221,7 +221,9 @@ def replay(
                 # while the oracle (the surviving truth) runs uninterrupted
                 error_seen |= bool(table._error())
                 with _shared_dir(mesh) as td:
-                    path = table.save(os.path.join(td, "table.npz"))
+                    # one writer: a local table revived on every rank of
+                    # the mesh is saved by rank 0 alone
+                    path = table.save(os.path.join(td, "table.npz"), mesh)
                     del table
                     table = Table.restore(path, rspec, device, rmesh)
                 snapshot_restores += 1

@@ -105,17 +105,23 @@ def serve_closed_loop(
     handover_at: Optional[float] = None,
     handover_spec=None,
     max_examples: int = 8,
+    mesh=None,
+    handover_mesh=None,
 ) -> dict:
     """Run a closed-loop serving scenario on a fresh ``spec`` table on
-    ``device`` (default ``"cuda"``); returns the router report extended
-    with parity results.
+    ``device`` (default ``"cuda"``), or on ``mesh`` (a sharded ``spec``;
+    every rank of the mesh runs this, and the router agrees its service
+    times over the mesh, so every rank serves the same stream alike);
+    returns the router report extended with parity results.
 
     ``handover_at`` (a fraction of total ops in ``(0, 1)``) triggers one
     :meth:`Router.handover` onto ``handover_spec`` once that many requests
     have completed — with requests still queued, which is the point. The
     successor lives on the same device and may have another placement or
     shard count than ``spec``, at the same aggregate hash bits
-    (``dmax + shard_bits``), which the oracle addresses.
+    (``dmax + shard_bits``), which the oracle addresses. A sharded
+    successor goes on ``handover_mesh`` (default ``mesh``); a local one is
+    a replica on every rank of a mesh run.
     ``report["ok"]`` requires zero mismatches, zero drops, and every
     admitted request completed.
     """
@@ -132,13 +138,17 @@ def serve_closed_loop(
         if not 0 < handover_due < total_ops:
             raise ValueError("handover_at must fall mid-trace")
 
-    table = Table.create(spec, device)
+    table = Table.create(spec, device, mesh)
     router = Router(
         table,
         router_config or RouterConfig(),
         cost_model=cost_model,
         clock=lambda: now,
     )
+    if handover_spec is not None and handover_spec.placement == "sharded":
+        handover_mesh = mesh if handover_mesh is None else handover_mesh
+    else:
+        handover_mesh = None
     if warmup:
         # run the dispatch shapes once so kernel builds and allocator
         # growth land in startup, not in the latency histograms
@@ -236,7 +246,7 @@ def serve_closed_loop(
             and not did_handover
             and completed_total >= handover_due
         ):
-            router.handover(handover_spec)
+            router.handover(handover_spec, mesh=handover_mesh)
             did_handover = True
         now += tick_s
     absorb(router.flush(now=now))

@@ -36,6 +36,8 @@ from repro.table_api import Table as JaxTable
 from repro.workloads import chaos as JC
 from repro_torch.table_api import Table
 from repro_torch.workloads import chaos as C
+from test_torch_dist import session_path
+from test_torch_mesh_serving import recorded_run as _recorded_run
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -167,47 +169,6 @@ def test_cli_clean_run(tmp_path):
     assert not (tmp_path / "chaos_failure.json").exists()
 
 
-def _recorded_run(mod, table_cls, monkeypatch, *args, **kw):
-    """``mod.chaos_replay(*args, **kw)`` with every step's statuses and
-    reads (``Table.apply``/``lookup`` on that step's own arrays) and every
-    content digest the harness computes recorded, as numpy."""
-    log = {"apply": [], "lookup": [], "digest": []}
-    step = [None]
-    gen_steps, apply, lookup = mod.gen_steps, table_cls.apply, table_cls.lookup
-    content_digest = mod.content_digest
-
-    def steps(trace):
-        for s in gen_steps(trace):
-            step[0] = s
-            yield s
-
-    def rec_apply(self, kinds, keys, values=None):
-        out = apply(self, kinds, keys, values)
-        if step[0] is not None and keys is step[0].keys:
-            log["apply"].append(np.asarray(out[1].status).astype(np.int8))
-        return out
-
-    def rec_lookup(self, keys):
-        found, vals = lookup(self, keys)
-        if step[0] is not None and keys is step[0].reads:
-            f = np.asarray(found)
-            log["lookup"].append((f, np.where(f, np.asarray(vals), 0)))
-        return found, vals
-
-    def rec_digest(keys, values):
-        d = content_digest(keys, values)
-        log["digest"].append(d)
-        return d
-
-    monkeypatch.setattr(mod, "gen_steps", steps)
-    monkeypatch.setattr(mod, "content_digest", rec_digest)
-    monkeypatch.setattr(table_cls, "apply", rec_apply)
-    monkeypatch.setattr(table_cls, "lookup", rec_lookup)
-    rep = mod.chaos_replay(*args, **kw)
-    monkeypatch.undo()
-    return rep, log
-
-
 def test_chaos_run_matches_jax(monkeypatch):
     kinds = ("kill_revive", "reshard", "policy_flap", "handover",
              "torn_save")
@@ -268,32 +229,69 @@ def _jax_sharded_main(out_path):
         dataclasses.replace(spec, backend="xla"), trace, schedule,
         mesh=mesh_for(spec.n_shards), mesh_for=mesh_for,
         raise_on_mismatch=False)
+    # the JAX package's own factory's shapes over the 8 devices
+    shapes = {}
+    for n in range(1, 17):
+        for lanes in range(1, 17):
+            m = JC.default_mesh_for(n, lanes)
+            shapes[f"{n},{lanes}"] = (None if m is None
+                                      else list(m.devices.shape))
     out = {"rep": rep,
            "apply": [a.tolist() for a in log["apply"]],
            "lookup": [(f.tolist(), v.tolist()) for f, v in log["lookup"]],
-           "digest": log["digest"]}
+           "digest": log["digest"],
+           "mesh_shapes": shapes}
     with open(out_path, "w") as f:
         json.dump(out, f)
     print("jax side OK")
     return 0
 
 
-def test_sharded_chaos_matches_jax(monkeypatch, tmp_path):
+def _make_jax_sharded(path, overlap=None):
+    """The JAX subprocess's run into ``path``; ``overlap()`` runs while the
+    subprocess does."""
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu", PYTHONPATH=SRC)
-    path = str(tmp_path / "jax.json")
-    proc = subprocess.Popen([sys.executable, HERE, "--jax-sharded", path],
+    tmp = path + ".part"
+    proc = subprocess.Popen([sys.executable, HERE, "--jax-sharded", tmp],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    # the port's run overlaps the JAX subprocess's
-    spec, trace, schedule = _sharded_setup(C)
-    rep, log = _recorded_run(C, Table, monkeypatch, spec, trace, schedule,
-                             device="cpu", shard_counts=(2, 4, 8),
-                             raise_on_mismatch=False)
-    out, err = proc.communicate(timeout=600)
+    try:
+        if overlap is not None:
+            overlap()
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     assert proc.returncode == 0, (out[-3000:], err[-3000:])
-    with open(path) as f:
-        jax_run = json.load(f)
+    os.replace(tmp, path)
+
+
+def shared_jax_chaos(tmp_path_factory, overlap=None):
+    """The JAX sharded chaos run on 8 forced host devices, made once per
+    test session (``tests/test_torch_mesh_serving.py`` reads the same
+    file). Where this call makes it, ``overlap()`` runs alongside."""
+    with open(session_path(tmp_path_factory, "jax_chaos.json",
+                           lambda p: _make_jax_sharded(p, overlap))) as f:
+        return json.load(f)
+
+
+def test_sharded_chaos_matches_jax(monkeypatch, tmp_path_factory):
+    spec, trace, schedule = _sharded_setup(C)
+    port = []
+
+    def port_run():
+        port.append(_recorded_run(C, Table, monkeypatch, spec, trace,
+                                  schedule, device="cpu",
+                                  shard_counts=(2, 4, 8),
+                                  raise_on_mismatch=False))
+
+    # the port's run overlaps the JAX subprocess's where this test makes it
+    jax_run = shared_jax_chaos(tmp_path_factory, overlap=port_run)
+    if not port:
+        port_run()
+    rep, log = port[0]
     jrep = jax_run["rep"]
     assert rep["ok"] and jrep["ok"], (rep["mismatch_examples"],
                                       jrep["mismatch_examples"])
@@ -325,8 +323,10 @@ def test_chaos_moves_to_4_and_8_shards():
     spec, trace, _ = C.chaos_setup("chaos_reshard", placement="sharded",
                                    seed=5, scale=0.3)
     counts = (4, 8)
-    cands = C._respec_candidates(spec, counts)
-    shards = [c.n_shards if c.placement == "sharded" else 1 for c in cands]
+    cands = C._respec_candidates(spec, shard_counts=counts)
+    assert all(m is None for _, m in cands)        # stacked
+    shards = [c.n_shards if c.placement == "sharded" else 1
+              for c, _ in cands]
     assert shards == [1, 1, 4, 4, 8, 8]
     n = trace.total_steps
     # (kind, candidate index): 4 shards, 8 shards by handover, local,
@@ -350,8 +350,9 @@ def test_chaos_moves_to_4_and_8_shards():
 
 def test_respec_candidates_match_jax():
     """``_respec_candidates`` with shard counts 2 / 4 / 8 is the JAX list
-    (its 8-device mesh factory) element for element; without them a
-    sharded table keeps its shard count, as JAX does with no factory."""
+    (its 8-device mesh factory) element for element; so is it with a mesh
+    factory, meshes included; without either a sharded table keeps its
+    shard count and mesh, as JAX does with no factory."""
     keys = ("placement", "shard_bits", "dmax", "pool_size")
     for placement in ("local", "sharded"):
         spec, _, _ = C.chaos_setup("chaos_reshard", placement=placement,
@@ -361,14 +362,21 @@ def test_respec_candidates_match_jax():
         for counts, mesh_for in (((2, 4, 8), lambda n: f"mesh{n}"),
                                  (None, None)):
             ours = [tuple(getattr(c, k) for k in keys)
-                    for c in C._respec_candidates(spec, counts)]
+                    for c, _ in C._respec_candidates(spec,
+                                                     shard_counts=counts)]
             want = [tuple(getattr(c, k) for k in keys)
                     for c, _ in JC._respec_candidates(jspec, None, mesh_for)]
             assert ours == want, (placement, counts)
+            pairs = [(tuple(getattr(c, k) for k in keys), m)
+                     for c, m in C._respec_candidates(spec, "m0", mesh_for)]
+            jpairs = [(tuple(getattr(c, k) for k in keys), m)
+                      for c, m in JC._respec_candidates(jspec, "m0",
+                                                        mesh_for)]
+            assert pairs == jpairs, (placement, counts)
             assert len(ours) == (8 if counts else
                                  2 + 2 * (placement == "sharded"))
     with pytest.raises(ValueError):
-        C._respec_candidates(spec, (3,))
+        C._respec_candidates(spec, shard_counts=(3,))
 
 
 if __name__ == "__main__":

@@ -46,15 +46,16 @@ from repro_torch.serving.router import (DEL, INS, READ, SHED_PRESSURE,
                                         measure_cost_model, shard_of)
 from repro_torch.table_api import Table, TableSpec
 from repro_torch.workloads import serve_closed_loop
+from test_torch_dist import session_path
+from test_torch_mesh_serving import BIGGER, COUNTERS, DRIVE_CFG, LOOP, SHARDED
+from test_torch_mesh_serving import drive as _drive
 
 jax.config.update("jax_platform_name", "cpu")
 
 MINI = dict(dmax=6, bucket_size=4, pool_size=64, n_lanes=8)
-# the specs of the JAX package's closed-loop tests
-LOOP = dict(dmax=8, bucket_size=8, pool_size=512, n_lanes=8)
-BIGGER = dict(dmax=9, bucket_size=8, pool_size=1024, n_lanes=8)
-# LOOP's 8 aggregate hash bits over 2 shards
-SHARDED = dict(LOOP, dmax=7, placement="sharded", shard_bits=1)
+# the specs of the JAX package's closed-loop tests (LOOP, BIGGER) and
+# LOOP's 8 aggregate hash bits over 2 shards (SHARDED), with the request
+# sequence of the router tests (_drive), are test_torch_mesh_serving's
 HERE = os.path.abspath(__file__)
 
 
@@ -98,6 +99,29 @@ def test_cost_model_measured_on_live_table():
     a = Router(t, RouterConfig())
     b = Router(t, RouterConfig())
     assert a.cost_model is b.cost_model and a.cost_model.source == "measured"
+
+
+def test_cost_model_key_has_the_shard_count():
+    """A 2-shard and a 4-shard table of the same ``dmax`` and pool are
+    measured apart (the JAX key holds ``shard_bits``); the key also holds
+    the mesh's shape, None off a mesh."""
+    from repro.serving.router import costmodel as jcostmodel
+    from repro_torch.serving.router import costmodel
+
+    geom = dict(MINI, placement="sharded")
+    t2 = Table.create(TableSpec(**geom, shard_bits=1), device="cpu")
+    t4 = Table.create(TableSpec(**geom, shard_bits=2), device="cpu")
+    k2, k4 = costmodel._cache_key(t2), costmodel._cache_key(t4)
+    assert k2 != k4 and None in k2 and None in k4
+    jkeys = [jcostmodel._cache_key(JaxSpec(**geom, shard_bits=b))
+             for b in (1, 2)]
+    assert jkeys[0] != jkeys[1]
+    costmodel._CACHE.pop(k2, None)
+    costmodel._CACHE.pop(k4, None)
+    m2 = costmodel.cost_model_for(t2, max_chunks=2, repeats=1)
+    m4 = costmodel.cost_model_for(t4, max_chunks=2, repeats=1)
+    assert m2 is not m4
+    assert costmodel._CACHE[k2] is m2 and costmodel._CACHE[k4] is m4
 
 
 # --- latency histogram ------------------------------------------------------
@@ -248,56 +272,6 @@ def test_closed_loop_parity(seed, handover):
         serve_closed_loop(spec, device="cpu", handover_at=0.5)
 
 
-COUNTERS = ("submitted", "admitted", "completed", "shed_queue_full",
-            "shed_pressure", "dispatches", "dispatched_ops", "lookup_ops",
-            "deferred_rounds", "maintenance_rounds", "handovers", "dropped",
-            "mean_batch", "queue_wait")
-
-
-def _drive(router, handover_spec, seed=21, mesh=None):
-    """A seeded request sequence with explicit times: 5 requests every
-    0.4 ms (a burst of 30, past the queue bound, every 15th time), a pump
-    after each, a handover halfway (with requests queued; ``mesh`` is the
-    JAX router's successor mesh), then forced pumps until the queues
-    drain. Returns the dispatch groups as (rid, kind, key, status, found,
-    result) tuples, the report and the per-shard queue depths just before
-    and just after the handover."""
-    rng = np.random.default_rng(seed)
-    groups, depths = [], []
-
-    def take(done):
-        if done:
-            groups.append([(q.rid, q.kind, q.key, q.status, q.found, q.result)
-                           for q in done])
-
-    now = 0.0
-    for tick in range(60):
-        for _ in range(30 if tick % 15 == 7 else 5):
-            kind = int(rng.choice([READ, READ, INS, INS, DEL]))
-            key = int(rng.integers(1, 160))
-            router.submit(kind, key, int(rng.integers(1, 1 << 20)), now=now)
-        if tick == 30:
-            assert len(router.queues) > 0
-            depths.append(router.queues.depths())
-            if mesh is None:
-                router.handover(handover_spec)
-            else:
-                router.handover(handover_spec, mesh)
-            depths.append(router.queues.depths())
-        take(router.pump(now=now))
-        now += 4e-4
-    while len(router.queues):
-        take(router.pump(now=now, force=True))
-        now += 1e-3
-    return groups, router.report(), depths
-
-
-# low pressure thresholds, so that the policy's pressure defers and sheds
-# writes in the short sequences of _drive
-DRIVE_CFG = dict(max_batch=16, max_queue_per_shard=24, max_delay_s=1e-3,
-                 pressure_defer=0.15, pressure_shed=0.25)
-
-
 def test_router_matches_jax():
     cfg = DRIVE_CFG
     port = Router(Table.create(TableSpec(**LOOP,
@@ -364,19 +338,30 @@ def _jax_sharded_main(out_path):
     return 0
 
 
-@pytest.fixture(scope="module")
-def jax_sharded(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("jax_router") / "jax.json")
+def _make_jax_sharded(path):
+    tmp = path + ".part"
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(os.path.dirname(os.path.dirname(
                    HERE)), "src"))
-    proc = subprocess.run([sys.executable, HERE, "--jax-sharded", path],
+    proc = subprocess.run([sys.executable, HERE, "--jax-sharded", tmp],
                           env=env, capture_output=True, text=True,
                           timeout=600)
     assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
-    with open(path) as f:
+    os.replace(tmp, path)
+
+
+def shared_jax_sharded(tmp_path_factory):
+    """The JAX sharded router's run, made once per test session
+    (``tests/test_torch_mesh_serving.py`` reads the same file)."""
+    with open(session_path(tmp_path_factory, "jax_router.json",
+                           _make_jax_sharded)) as f:
         return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory):
+    return shared_jax_sharded(tmp_path_factory)
 
 
 def test_sharded_router_matches_jax(jax_sharded):

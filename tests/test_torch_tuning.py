@@ -54,7 +54,7 @@ def test_autotune_cold_sweep_then_warm_hit(cache):
     before = tuning.autotune.runner_calls
 
     win = tuning.autotune(key, cands, calls.append, iters=2,
-                          backend_tag="cpu")
+                          backend_tag="cpu", device="cpu")
     assert win in cands
     # one warm-up and two timed calls a candidate
     assert len(calls) == 2 * 3
@@ -69,7 +69,7 @@ def test_autotune_cold_sweep_then_warm_hit(cache):
     tuning.clear_registry()
     n_cold = tuning.autotune.runner_calls
     win2 = tuning.autotune(key, cands, calls.append, iters=2,
-                           backend_tag="cpu")
+                           backend_tag="cpu", device="cpu")
     assert win2 == win and len(calls) == 6
     assert tuning.autotune.runner_calls == n_cold
     # and the hit re-pinned the registry for pick_tiles
@@ -80,11 +80,13 @@ def test_autotune_cache_is_backend_keyed(cache):
     key = tuning.tile_key("apply", dmax=6, pool_size=64, n_lanes=8)
     cands = [tuning.TileConfig(chunk=1024)]
     calls = []
-    tuning.autotune(key, cands, calls.append, iters=1, backend_tag="cpu")
+    tuning.autotune(key, cands, calls.append, iters=1, backend_tag="cpu",
+                    device="cpu")
     n = len(calls)
     # another tag is another card or kernel build: a full re-measure
     tuning.autotune(key, cands, calls.append, iters=1,
-                    backend_tag="NVIDIA H100 80GB HBM3/sm_90/0123abcd")
+                    backend_tag="NVIDIA H100 80GB HBM3/sm_90/0123abcd",
+                    device="cpu")
     assert len(calls) > n
     assert tuning.cached_tiles(key, "cpu") is not None
     assert tuning.cached_tiles(
@@ -108,8 +110,29 @@ def test_autotune_skips_raising_candidates():
             raise RuntimeError("launch failed")
 
     win = tuning.autotune(key, [tuning.TileConfig(block=32), good], run,
-                          iters=1, backend_tag="x")
+                          iters=1, backend_tag="x", device="cpu")
     assert win == good
+
+
+def test_autotune_runs_on_the_card_by_default(cache, monkeypatch):
+    """An entry point runs on the card unless the caller names another
+    device: ``autotune`` with no ``device`` times its candidates on
+    ``cuda``, and raises before running anything where there is no card."""
+    key = tuning.tile_key("lookup", dmax=6, pool_size=64, n_lanes=8)
+    cands = [tuning.TileConfig(block=32)]
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tuning.autotune(key, cands, calls.append, iters=1, backend_tag="x")
+    assert calls == []
+    seen = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tuning, "_mean_s",
+                        lambda run, tiles, iters, device: seen.append(
+                            device) or 1.0)
+    assert tuning.autotune(key, cands, calls.append, iters=1,
+                           backend_tag="x") == cands[0]
+    assert [d.type for d in seen] == ["cuda"]
 
 
 @needs_jax
@@ -124,7 +147,7 @@ def test_autotune_raises_when_every_candidate_raises(cache):
     with pytest.raises(RuntimeError, match="every candidate raised"):
         tuning.autotune(key, [tuning.TileConfig(chunk=1024),
                               tuning.TileConfig(chunk=2048)], run, iters=1,
-                        backend_tag="x")
+                        backend_tag="x", device="cpu")
     assert not cache.exists() and tuning.cached_tiles(key, "x") is None
     assert tuning.pick_tiles(8, key=key) == tuning.clamp_tiles(
         tuning.TileConfig(), 8)
