@@ -25,7 +25,7 @@ The state is a ``TableState`` of torch tensors on one device. Transactions
 update the pool and per-bucket tensors **in place** and return the state:
 the state passed in is consumed. Control flow that XLA expressed as
 ``while_loop``/``cond`` is a Python loop reading one device scalar per
-round (``.item()``).
+round (``telemetry.host_read``, an ``.item()``).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.hashing import (EMPTY_KEY, child_bit, dir_index,
                                       hash_fn)
 
@@ -429,8 +430,9 @@ def _fast_pass(cfg: TableConfig, st: TableState, ops: OpBatch, pending,
                       & col_hit).any(dim=1)                      # [n, B]
     else:
         cleared = torch.zeros((P + 1, B), dtype=torch.bool, device=dev)
-        cleared[torch.where(del_clear, b_act, P).long(),
-                slot_eq.long()] = True
+        telemetry.host_write("fast_pass", cleared,
+                             (torch.where(del_clear, b_act, P).long(),
+                              slot_eq.long()), True)
         freed_rows = cleared[b_act.long()]
     free_rows = (rows_k == EMPTY_KEY) | freed_rows
     csum = torch.cumsum(free_rows.to(I32), dim=-1)
@@ -475,7 +477,10 @@ def wave_combine(pool_keys, pool_vals, frozen, bucket, mask, kinds, keys,
     new_val = torch.where(is_ins, values, 0)
     full_hit = torch.zeros_like(mask)
     exist_at = torch.zeros_like(mask)
-    for w in range(int(rank.max().item()) + 1 if rank.numel() else 0):
+    waves = (telemetry.host_read("waves", rank.max()) + 1
+             if rank.numel() else 0)
+    telemetry.count("slow.waves", waves)
+    for w in range(waves):
         sel = rank == w
         row = torch.where(sel, bucket, P).long()
         rows_k = pool_keys[row]
@@ -508,7 +513,7 @@ def _wave_pass(cfg: TableConfig, st: TableState, ops: OpBatch, pending,
     dcount = ((applied & is_ins & ~exist).to(I32)
               - (applied & ~is_ins & exist).to(I32))
     st.counts.index_add_(0, torch.where(applied, bucket, P).long(), dcount)
-    st.counts[P] = 0
+    telemetry.host_write("wave_pass", st.counts, P, 0)
 
     op_status = torch.where(is_ins, ~exist, exist).to(torch.int8)
     status = torch.where(applied, op_status, status)
@@ -591,17 +596,17 @@ def _do_splits(cfg: TableConfig, st: TableState, split_ids, valid):
     bdepth[id1] = pd + 1
     bprefix[id0] = pp * 2
     bprefix[id1] = pp * 2 + 1
-    live[id0] = True
-    live[id1] = True
-    frozen[id0] = False
-    frozen[id1] = False
+    telemetry.host_write("splits", live, id0, True)
+    telemetry.host_write("splits", live, id1, True)
+    telemetry.host_write("splits", frozen, id0, False)
+    telemetry.host_write("splits", frozen, id1, False)
 
     # retire parents: dead + pushed on the free stack for reuse
     dead_ids = split_ids
-    live[dead_ids] = False
-    live[P] = False
-    counts[dead_ids] = 0
-    counts[P] = 0
+    telemetry.host_write("splits", live, dead_ids, False)
+    telemetry.host_write("splits", live, P, False)
+    telemetry.host_write("splits", counts, dead_ids, 0)
+    telemetry.host_write("splits", counts, P, 0)
     push_pos = torch.where(
         valid, st.free_top + torch.cumsum(valid.to(I32), dim=0) - 1, P)
     st.free_stack[push_pos.long()] = split_ids.to(I32)
@@ -609,8 +614,8 @@ def _do_splits(cfg: TableConfig, st: TableState, split_ids, valid):
 
     # --- DirectoryUpdate: one vectorized pass over the physical entries ---
     is_split = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    is_split[dead_ids] = True
-    is_split[P] = False
+    telemetry.host_write("splits", is_split, dead_ids, True)
+    telemetry.host_write("splits", is_split, P, False)
     c0_of = iota.clone()
     c0_of[dead_ids] = id0.to(I32)
     c1_of = iota.clone()
@@ -644,9 +649,10 @@ def _split_pass(cfg: TableConfig, st: TableState, ops: OpBatch, pending,
     bucket = bucket.long()
 
     needs = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    needs[torch.where(pending, bucket, P)] = True
+    telemetry.host_write("split_pass", needs,
+                         torch.where(pending, bucket, P), True)
     needs = needs & st.live & ~st.frozen & (st.counts == B)
-    needs[P] = False
+    telemetry.host_write("split_pass", needs, P, False)
     # a bucket already at dmax cannot split: the hash bits are exhausted
     stuck = needs & (st.bdepth >= cfg.dmax)
     splittable = needs & (st.bdepth < cfg.dmax)
@@ -671,33 +677,39 @@ def apply_batch(cfg: TableConfig, state: TableState, ops: OpBatch):
     exactly-once test of paper lines 55/103). ``state`` is consumed."""
     n = cfg.n_lanes
     assert ops.kind.shape == (n,), (ops.kind.shape, n)
-    fresh = (ops.kind != NOP) & (ops.seq > state.applied_seq)
-    replay = (ops.kind != NOP) & ~fresh
-    status = torch.full((n,), PENDING, dtype=torch.int8,
-                        device=ops.kind.device)
+    with telemetry.span("repro.core.apply_batch"):
+        fresh = (ops.kind != NOP) & (ops.seq > state.applied_seq)
+        replay = (ops.kind != NOP) & ~fresh
+        status = torch.full((n,), PENDING, dtype=torch.int8,
+                            device=ops.kind.device)
 
-    st, pending = state, fresh
-    if cfg.use_fast_path:
-        st, pending, status = _fast_pass(cfg, st, ops, pending, status)
-
-    # overflow fallback: bounded split/wave rounds (FAIL → ResizeWF)
-    r = 0
-    while r < cfg.rounds and bool(pending.any()):
+        st, pending = state, fresh
         if cfg.use_fast_path:
-            st, pending, status = _split_pass(cfg, st, ops, pending, status)
-            st, pending, status = _wave_pass(cfg, st, ops, pending, status)
-        else:
-            st, pending, status = _wave_pass(cfg, st, ops, pending, status)
-            if bool(pending.any()):
+            st, pending, status = _fast_pass(cfg, st, ops, pending, status)
+
+        # overflow fallback: bounded split/wave rounds (FAIL → ResizeWF)
+        r = 0
+        while r < cfg.rounds and telemetry.host_read("pending",
+                                                     pending.any()):
+            telemetry.count("slow.rounds")
+            if cfg.use_fast_path:
                 st, pending, status = _split_pass(cfg, st, ops, pending,
                                                   status)
-        r += 1
-    # wait-freedom: anything still pending is capacity exhaustion, flagged
-    st = st._replace(error=st.error | pending.any())
-    status = torch.where(replay, st.last_status, status)
-    final = torch.where(ops.kind == NOP, st.last_status, status)
-    st = st._replace(last_status=final)
-    return st, BatchResult(status=final, error=st.error)
+                st, pending, status = _wave_pass(cfg, st, ops, pending,
+                                                 status)
+            else:
+                st, pending, status = _wave_pass(cfg, st, ops, pending,
+                                                 status)
+                if telemetry.host_read("pending", pending.any()):
+                    st, pending, status = _split_pass(cfg, st, ops, pending,
+                                                      status)
+            r += 1
+        # wait-freedom: anything still pending is capacity exhaustion
+        st = st._replace(error=st.error | pending.any())
+        status = torch.where(replay, st.last_status, status)
+        final = torch.where(ops.kind == NOP, st.last_status, status)
+        st = st._replace(last_status=final)
+        return st, BatchResult(status=final, error=st.error)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core import table as T
 from repro_torch.kernels import apply as kapply
 from repro_torch.kernels import lookup as klookup
@@ -48,7 +49,7 @@ def _count_applied(cfg, state, ops, status, bid, live, frozen_hit):
     delta = ((hit & (ops.kind == T.INS)).to(torch.int32)
              - (hit & (ops.kind == T.DEL)).to(torch.int32))
     state.counts.index_add_(0, torch.where(applied, bid, P).long(), delta)
-    state.counts[P] = 0
+    telemetry.host_write("applied", state.counts, P, 0)
     return state._replace(applied_seq=torch.where(
         applied | frozen_hit, ops.seq, state.applied_seq))
 
@@ -58,8 +59,11 @@ def _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit, replay):
     replay/frozen/NOP status overlays. Only ops that hit a full bucket
     re-enter the plain transaction; everyone else is masked to NOP."""
     need_slow = live & (status == ST_FULL)
+    telemetry.count_device("txn.live_lanes", live)
+    telemetry.count_device("slow.lanes", need_slow)
     slow_status = status
-    if bool(need_slow.any()):
+    if telemetry.host_read("need_slow", need_slow.any()):
+        telemetry.count("slow.calls")
         slow_ops = T.OpBatch(kind=torch.where(need_slow, ops.kind, T.NOP),
                              key=ops.key, value=ops.value, seq=ops.seq)
         st, res = T.apply_batch(cfg, st, slow_ops)
@@ -122,19 +126,21 @@ def _apply_batch_kernel_impl(cfg: T.TableConfig, state: T.TableState,
 def plan_lookup(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
                 queries):
     """Rule-A lookup under a resolved plan, in its lookup tiles."""
-    if plan.backend == "plain":
-        return T.lookup(cfg, state, queries)
-    return _kernel_lookup_impl(cfg, state, queries, plan.fused_lookup,
-                               block=plan.lookup_tiles.block)
+    with telemetry.span("repro.dispatch.lookup"):
+        if plan.backend == "plain":
+            return T.lookup(cfg, state, queries)
+        return _kernel_lookup_impl(cfg, state, queries, plan.fused_lookup,
+                                   block=plan.lookup_tiles.block)
 
 
 def plan_apply(plan: KernelPlan, cfg: T.TableConfig, state: T.TableState,
                ops: T.OpBatch):
     """Combining transaction under a resolved plan: the fused kernel where
     the plan allows, else the grouped kernel in the plan's apply tiles."""
-    if plan.backend == "plain":
-        return T.apply_batch(cfg, state, ops)
-    if plan.fused_apply:
-        return _apply_batch_fused_impl(cfg, state, ops)
-    return _apply_batch_kernel_impl(cfg, state, ops,
-                                    chunk=plan.apply_tiles.chunk)
+    with telemetry.span("repro.dispatch.apply"):
+        if plan.backend == "plain":
+            return T.apply_batch(cfg, state, ops)
+        if plan.fused_apply:
+            return _apply_batch_fused_impl(cfg, state, ops)
+        return _apply_batch_kernel_impl(cfg, state, ops,
+                                        chunk=plan.apply_tiles.chunk)

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import telemetry
 from repro_torch.core import dist as D
 from repro_torch.core import snapshot
 from repro_torch.core import table as T
@@ -223,29 +224,31 @@ class Table:
         """Rule-A lookup, any batch length. Returns ``(found, values)``:
         bool[m], and the payload dict (zeros where absent) in schema mode
         or the i32 word (-1 where absent), on the table's device."""
-        q = self._i32(keys)
-        m = q.shape[0]
-        if m == 0:
-            found = torch.zeros(0, dtype=torch.bool, device=self.device)
-            word = torch.zeros(0, dtype=torch.int32, device=self.device)
-        else:
-            if self.spec.placement == "sharded":
-                # a whole number of n_lanes, as the JAX facade pads for its
-                # data axis
-                q = _pad(q, self.spec.plan_batch(m)[1])
-            found, word = _raw_lookup(self, self.state, q)
-            found, word = found[:m], word[:m]
-        if self.spec.value_schema is None:
-            return found, word
-        cap = self.spec.slab_rows
-        h = torch.where(found, word, cap).clamp(0, cap).long()
-        out = {}
-        for name, slab in self.slabs.items():
-            leaf = signed_view(slab)[h]
-            mask = found.reshape(found.shape + (1,) * (leaf.ndim - 1))
-            out[name] = torch.where(mask, leaf, torch.zeros_like(leaf)).view(
-                slab.dtype)
-        return found, out
+        with telemetry.span("repro.facade.lookup"):
+            q = self._i32(keys)
+            m = q.shape[0]
+            if m == 0:
+                found = torch.zeros(0, dtype=torch.bool, device=self.device)
+                word = torch.zeros(0, dtype=torch.int32, device=self.device)
+            else:
+                if self.spec.placement == "sharded":
+                    # a whole number of n_lanes, as the JAX facade pads for
+                    # its data axis
+                    q = _pad(q, self.spec.plan_batch(m)[1])
+                found, word = _raw_lookup(self, self.state, q)
+                found, word = found[:m], word[:m]
+            if self.spec.value_schema is None:
+                return found, word
+            cap = self.spec.slab_rows
+            h = torch.where(found, word, cap).clamp(0, cap).long()
+            out = {}
+            for name, slab in self.slabs.items():
+                leaf = signed_view(slab)[h]
+                mask = found.reshape(found.shape + (1,) * (leaf.ndim - 1))
+                out[name] = torch.where(mask, leaf,
+                                        torch.zeros_like(leaf)).view(
+                                            slab.dtype)
+            return found, out
 
     def size(self) -> torch.Tensor:
         """Live item count (an O(pool) read of the occupancy counts; summed
@@ -298,45 +301,48 @@ class Table:
         """Write ``values`` only where the key is already present. Status:
         FALSE where the key was absent. Presence is read before the
         transaction; duplicate keys resolve in lane order."""
-        keys = self._i32(keys)
-        found, _ = self.lookup(keys)
-        kinds = torch.where(found, INS, NOP).to(torch.int32)
-        t2, res = self.apply(kinds, keys, values)
-        status = torch.where(found, res.status, T.FALSE).to(torch.int8)
-        return t2, BatchResult(status=status, error=res.error)
+        with telemetry.span("repro.facade.update"):
+            keys = self._i32(keys)
+            found, _ = self.lookup(keys)
+            kinds = torch.where(found, INS, NOP).to(torch.int32)
+            t2, res = self.apply(kinds, keys, values)
+            status = torch.where(found, res.status, T.FALSE).to(torch.int8)
+            return t2, BatchResult(status=status, error=res.error)
 
     def apply(self, kinds, keys, values=None):
         """Generic mixed batch of {NOP, INS, DEL} ops, any length ``m``:
         NOP-padded to whole ``n_lanes`` chunks, one combining transaction
         per chunk. Returns ``(table', BatchResult)`` with ``status[m]``."""
-        kinds, keys = self._i32(kinds), self._i32(keys)
-        if not (kinds.ndim == 1 and kinds.shape == keys.shape):
-            raise ValueError(
-                f"kinds and keys must be matching 1-d arrays; got "
-                f"{tuple(kinds.shape)}, {tuple(keys.shape)}")
-        m = kinds.shape[0]
-        values = self._check_values(m, values)
-        if m == 0:
-            # empty batch: no transaction, no seq tick
-            return self, BatchResult(
-                status=torch.zeros(0, dtype=torch.int8, device=self.device),
-                error=self._error())
-        n = self.spec.n_lanes
-        n_chunks, padded = self.spec.plan_batch(m)
-        kinds, keys = _pad(kinds, padded), _pad(keys, padded)   # NOP == 0
-        values = ({k: _pad(v, padded) for k, v in values.items()}
-                  if isinstance(values, dict) else _pad(values, padded))
-        t, statuses = self, []
-        for c in range(n_chunks):
-            lanes = slice(c * n, (c + 1) * n)
-            chunk = ({k: v[lanes] for k, v in values.items()}
-                     if isinstance(values, dict) else values[lanes])
-            t, status, error = t._apply_chunk(kinds[lanes], keys[lanes],
-                                              chunk)
-            statuses.append(status)
-        status = torch.cat(statuses)[:m]
-        # the error flag is sticky: the last chunk's covers the call
-        return t, BatchResult(status=status, error=error)
+        with telemetry.span("repro.facade.apply"):
+            kinds, keys = self._i32(kinds), self._i32(keys)
+            if not (kinds.ndim == 1 and kinds.shape == keys.shape):
+                raise ValueError(
+                    f"kinds and keys must be matching 1-d arrays; got "
+                    f"{tuple(kinds.shape)}, {tuple(keys.shape)}")
+            m = kinds.shape[0]
+            values = self._check_values(m, values)
+            if m == 0:
+                # empty batch: no transaction, no seq tick
+                return self, BatchResult(
+                    status=torch.zeros(0, dtype=torch.int8,
+                                       device=self.device),
+                    error=self._error())
+            n = self.spec.n_lanes
+            n_chunks, padded = self.spec.plan_batch(m)
+            kinds, keys = _pad(kinds, padded), _pad(keys, padded)  # NOP == 0
+            values = ({k: _pad(v, padded) for k, v in values.items()}
+                      if isinstance(values, dict) else _pad(values, padded))
+            t, statuses = self, []
+            for c in range(n_chunks):
+                lanes = slice(c * n, (c + 1) * n)
+                chunk = ({k: v[lanes] for k, v in values.items()}
+                         if isinstance(values, dict) else values[lanes])
+                t, status, error = t._apply_chunk(kinds[lanes], keys[lanes],
+                                                  chunk)
+                statuses.append(status)
+            status = torch.cat(statuses)[:m]
+            # the error flag is sticky: the last chunk's covers the call
+            return t, BatchResult(status=status, error=error)
 
     def merge(self, parent_prefix: int, parent_depth: int):
         """Merge the two buddy buckets of a would-be parent (paper §4.5).
@@ -381,35 +387,41 @@ class Table:
         """One ``n_lanes``-wide combining transaction, plus the payload
         side store's maintenance in schema mode. Returns (table', status,
         error): the error flag of any shard after it."""
-        seq = self.seq + 1
-        n = kinds.shape[0]
-        seqs = torch.full((n,), seq, dtype=torch.int32, device=self.device)
-        if self.spec.value_schema is None:
-            st, res = _raw_apply(self, self.state,
-                                 OpBatch(kind=kinds, key=keys, value=values,
-                                         seq=seqs))
-            return self._replace(state=st, seq=seq), res.status, res.error
+        with telemetry.span("repro.facade.txn"):
+            seq = self.seq + 1
+            n = kinds.shape[0]
+            seqs = torch.full((n,), seq, dtype=torch.int32,
+                              device=self.device)
+            if self.spec.value_schema is None:
+                st, res = _raw_apply(self, self.state,
+                                     OpBatch(kind=kinds, key=keys,
+                                             value=values, seq=seqs))
+                return (self._replace(state=st, seq=seq), res.status,
+                        res.error)
 
-        cap = self.spec.slab_rows
-        # the transaction consumes the state: read the keys' handles first
-        found0, h0 = _raw_lookup(self, self.state, keys)
-        is_ins = kinds == INS
-        isn = is_ins & ~found0
-        first, rows, handle_new, exhausted = _alloc_handles(
-            keys, isn, self.slab_live, cap)
-        handle = torch.where(is_ins & found0, h0,
-                             torch.where(isn, handle_new, 0))
-        st, res = _raw_apply(self, self.state,
-                             OpBatch(kind=kinds, key=keys, value=handle,
-                                     seq=seqs))
-        _write_payloads(self.slabs, values, keys, handle, is_ins, res.status,
-                        cap)
-        found1, h1 = _raw_lookup(self, st, keys)
-        _reconcile_handles(self.slab_live, found0, h0, first, rows, found1,
-                           h1, cap)
-        st = st._replace(error=st.error | exhausted)
-        return (self._replace(state=st, seq=seq), res.status,
-                res.error | exhausted)
+            cap = self.spec.slab_rows
+            # the transaction consumes the state: read the keys' handles
+            # first
+            with telemetry.span("repro.payload.lookup_before"):
+                found0, h0 = _raw_lookup(self, self.state, keys)
+            is_ins = kinds == INS
+            isn = is_ins & ~found0
+            first, rows, handle_new, exhausted = _alloc_handles(
+                keys, isn, self.slab_live, cap)
+            handle = torch.where(is_ins & found0, h0,
+                                 torch.where(isn, handle_new, 0))
+            st, res = _raw_apply(self, self.state,
+                                 OpBatch(kind=kinds, key=keys, value=handle,
+                                         seq=seqs))
+            _write_payloads(self.slabs, values, keys, handle, is_ins,
+                            res.status, cap)
+            with telemetry.span("repro.payload.lookup_after"):
+                found1, h1 = _raw_lookup(self, st, keys)
+            _reconcile_handles(self.slab_live, found0, h0, first, rows,
+                               found1, h1, cap)
+            st = st._replace(error=st.error | exhausted)
+            return (self._replace(state=st, seq=seq), res.status,
+                    res.error | exhausted)
 
     # -- helpers -----------------------------------------------------------
 
@@ -508,21 +520,22 @@ def _alloc_handles(keys, isn, slab_live, cap: int):
     (``cap`` off the new-key lanes), exhausted bool[]). One scan of the
     liveness bitmap: a cumulative count of free rows, searched for each
     first lane's rank."""
-    n = keys.shape[0]
-    order, is_start, _, in_mask = _run_heads(keys, isn)
-    first = torch.zeros(n, dtype=torch.bool, device=keys.device)
-    first[order] = is_start & in_mask
-    csum = torch.cumsum(~slab_live, 0)      # row `cap` is always live
-    cum_first = torch.cumsum(first.to(torch.int64), 0)
-    rows = torch.searchsorted(csum, cum_first).clamp(0, cap)
-    rows = torch.where(first, rows, cap).to(torch.int32)
-    exhausted = cum_first[-1] > csum[-1]
-    # every lane of a key's run takes the row of the run's first lane
-    head = T._cummax(torch.where(
-        is_start, torch.arange(n, device=keys.device), -1))
-    handle = torch.empty_like(rows)
-    handle[order] = torch.where(in_mask, rows[order][head], cap)
-    return first, rows, handle, exhausted
+    with telemetry.span("repro.payload.alloc"):
+        n = keys.shape[0]
+        order, is_start, _, in_mask = _run_heads(keys, isn)
+        first = torch.zeros(n, dtype=torch.bool, device=keys.device)
+        first[order] = is_start & in_mask
+        csum = torch.cumsum(~slab_live, 0)      # row `cap` is always live
+        cum_first = torch.cumsum(first.to(torch.int64), 0)
+        rows = torch.searchsorted(csum, cum_first).clamp(0, cap)
+        rows = torch.where(first, rows, cap).to(torch.int32)
+        exhausted = cum_first[-1] > csum[-1]
+        # every lane of a key's run takes the row of the run's first lane
+        head = T._cummax(torch.where(
+            is_start, torch.arange(n, device=keys.device), -1))
+        handle = torch.empty_like(rows)
+        handle[order] = torch.where(in_mask, rows[order][head], cap)
+        return first, rows, handle, exhausted
 
 
 def _write_payloads(slabs, values, keys, handle, is_ins, status, cap: int):
@@ -530,13 +543,14 @@ def _write_payloads(slabs, values, keys, handle, is_ins, status, cap: int):
     an INS that applied (TRUE/FALSE) writes — a FROZEN or OVERFLOW upsert
     leaves the key's payload untouched — and of one key's applied INS lanes
     only the last. Every other lane writes the trash row ``cap``."""
-    applied = is_ins & ((status == T.TRUE) | (status == T.FALSE))
-    order, _, is_end, in_mask = _run_heads(keys, applied)
-    write = torch.zeros_like(applied)
-    write[order] = is_end & in_mask
-    rows = torch.where(write, handle, cap).long()
-    for name, slab in slabs.items():
-        signed_view(slab)[rows] = signed_view(values[name])
+    with telemetry.span("repro.payload.write"):
+        applied = is_ins & ((status == T.TRUE) | (status == T.FALSE))
+        order, _, is_end, in_mask = _run_heads(keys, applied)
+        write = torch.zeros_like(applied)
+        write[order] = is_end & in_mask
+        rows = torch.where(write, handle, cap).long()
+        for name, slab in slabs.items():
+            signed_view(slab)[rows] = signed_view(values[name])
 
 
 def _reconcile_handles(slab_live, found0, h0, first, rows, found1, h1,
@@ -544,7 +558,9 @@ def _reconcile_handles(slab_live, found0, h0, first, rows, found1, h1,
     """Liveness after the transaction, in place: free every handle the
     batch touched, then mark whatever the table maps each key to now — in
     this order, so that a freed-then-remapped handle ends live."""
-    slab_live[torch.where(found0, h0, cap).long()] = False
-    slab_live[torch.where(first, rows, cap).long()] = False
-    slab_live[torch.where(found1, h1, cap).long()] = True
-    slab_live[cap] = True
+    with telemetry.span("repro.payload.reconcile"):
+        for mask, h, live in ((found0, h0, False), (first, rows, False),
+                              (found1, h1, True)):
+            telemetry.host_write("reconcile", slab_live,
+                                 torch.where(mask, h, cap).long(), live)
+        telemetry.host_write("reconcile", slab_live, cap, True)
