@@ -32,7 +32,12 @@ printing one JSON line:
    LLM serving path's page table (``page_table_cases``: dmax 11 over 4,096
    rows, ``(seq << 12) | block`` keys, ``fused_probe`` on the step's 8-key
    pre-read and its 512-key page-id lookup, ``fused_apply`` on 16-lane
-   batches of a decode step's upserts and an eviction's deletes);
+   batches of a decode step's upserts and an eviction's deletes); then
+   ``resize_apply``, the ``ST_FULL`` slow path (no TPU counterpart),
+   against ``core/table.py::apply_batch`` on every slow call of a
+   2**18-key load through the facade into an empty table of the main
+   geometry at 512 lanes and at 4,096 (``resize_cases``: every state
+   field, the trash row included, and every status, tolerance 0);
 3. main path at full size through the ``Table`` facade:
    ``TableSpec(dmax=20, bucket_size=8, pool_size=2**20, n_lanes=512,
    initial_depth=16)``, a 2**19-key preload, 256 rounds of one 4,608-key
@@ -58,8 +63,10 @@ printing one JSON line:
    the two probes warm (back to back) and cold (the L2 flushed before each
    launch), each also above the floor timed the same way; each kernel's
    registers and spills from its ``ptxas -v`` report, every instantiation
-   (no spills); and, with a generator of its own, warm ms per launch
-   shape (``tile_times``): both probes at every block and ``grouped_apply``
+   (no spills); ``resize_apply`` warm, cold and beside ``apply_batch``
+   on the first 16 slow calls of each of phase 2's loads, each call on a
+   fresh copy of its state; and, with a generator of its own, warm ms per
+   launch shape (``tile_times``): both probes at every block and ``grouped_apply``
    at every chunk, on the main shapes (4,608 queries, 512 lanes) and the
    wide ones (36,864, 4,096). Then the ``tuning`` line: ``TableSpec(
    autotune="measured")`` resolved on the card for the main and the wide
@@ -1032,6 +1039,123 @@ def page_table_cases(rng, dev, depth=4):
     return out
 
 
+# resize_apply's case: the keys loaded at each width, and the slow calls
+# of each width kept and timed (each timed call on a fresh copy of its
+# state, a whole TableState of the main geometry, ~91 MB)
+RESIZE_LOAD = 2**18
+RESIZE_TIMED = 16
+RESIZE_PLAIN = 8
+
+
+def resize_bytes(cfg, before, after, n_slow):
+    """Bytes a slow call cannot do without, counted low: the n lanes' kind,
+    seq, stored seq and status read and their three outputs written (19 B
+    a lane), each slow lane's key, value and one bucket row, each split's
+    parent row read, two child rows written and the three buckets' five
+    fields, and every directory entry it rewrote."""
+    B, P = cfg.bucket_size, cfg.pool_size
+    row = 8 * B
+    splits = int(after.live[:P].sum() - before.live[:P].sum())
+    entries = int((after.directory != before.directory).sum())
+    return (19 * cfg.n_lanes + n_slow * (8 + row)
+            + splits * (3 * row + 3 * 18) + 4 * entries), splits
+
+
+def resize_cases(rng, dev):
+    """``resize_apply`` against ``core/table.py::apply_batch`` on real
+    ``ST_FULL`` batches: ``RESIZE_LOAD`` fresh keys loaded through the
+    facade into an empty table of the main geometry, at the main path's
+    512 lanes (``fused_apply`` in front) and at the wide path's 4,096
+    (``grouped_apply``). Every slow call of both loads runs both on copies
+    of the same inputs: every state field (the trash row included) and
+    every status equal, tolerance 0. The first ``RESIZE_TIMED`` calls of
+    each width are kept and timed, each call on a fresh copy of its
+    inputs: warm (``cuda_ms``: back to back), cold (``cold_ms``: the L2
+    flushed before each) and the plain transaction (``host_ms``: it syncs
+    inside, ``RESIZE_PLAIN`` calls); ``resize_bytes`` bounds them. One
+    ``kernel_case`` line per width. Returns ({"resize_apply":
+    (mismatches, max abs err)}, {width: (warm ms, cold ms, plain ms, mean
+    bytes)})."""
+    from repro_torch.core import table as T
+    from repro_torch.kernels import resize as kresize
+    from repro_torch.table_api import Table, TableSpec
+
+    resize_apply = kresize.resize_apply
+    keys = distinct_keys(rng, RESIZE_LOAD)
+    vals = rng.integers(0, 2**31 - 1, size=RESIZE_LOAD).astype(np.int32)
+    mm_all, err_all, times = 0, 0, {}
+    for shape, spec_kw in (("main", MAIN_SPEC), ("wide", WIDE_SPEC)):
+        cfg = TableSpec(**spec_kw, backend="cuda").table_config()
+        acc = {"calls": 0, "lanes": 0, "splits": 0, "mismatches": 0,
+               "max_abs_err": 0, "statuses": set()}
+        kept = []
+
+        def checked(cfg, st, ops):
+            before = copy_state(st)
+            ref_st, ref = T.apply_batch(cfg, copy_state(st), ops)
+            got_st, got = resize_apply(cfg, st, ops)
+            n_slow = int((ops.kind != T.NOP).sum())
+            acc["mismatches"] += sum(int((x != y).sum()) for x, y in
+                                     zip(got_st, ref_st))
+            acc["mismatches"] += int((got.status != ref.status).sum())
+            acc["max_abs_err"] = max(acc["max_abs_err"], int(
+                (got_st.vals.long() - ref_st.vals.long()).abs().max()))
+            n_bytes, splits = resize_bytes(cfg, before, got_st, n_slow)
+            acc["calls"] += 1
+            acc["lanes"] += n_slow
+            acc["splits"] += splits
+            acc["statuses"] |= set(got.status[ops.kind != T.NOP].tolist())
+            if len(kept) < RESIZE_TIMED:
+                kept.append((before, T.OpBatch(*(x.clone() for x in ops)),
+                             n_bytes))
+            return got_st, got
+
+        t = Table.create(TableSpec(**spec_kw, backend="cuda"), device=dev)
+        kresize.resize_apply = checked
+        try:
+            t, res = t.insert(torch.tensor(keys, device=dev),
+                              torch.tensor(vals, device=dev))
+            torch.cuda.synchronize()
+        finally:
+            kresize.resize_apply = resize_apply
+        check(bool((res.status == T.TRUE).all()) and not bool(t.state.error),
+              f"resize_apply {shape}: load statuses or error flag")
+        check(len(kept) == RESIZE_TIMED and acc["splits"] > 0,
+              f"resize_apply {shape}: {acc['calls']} slow calls, "
+              f"{acc['splits']} splits")
+        del t, res
+
+        def fresh(count):
+            """A call on a fresh copy of the next kept call's inputs."""
+            it = iter([(copy_state(kept[i % len(kept)][0]),
+                        kept[i % len(kept)][1]) for i in range(count)])
+            return lambda fn: lambda i: fn(cfg, *next(it))
+
+        warm = cuda_ms(fresh(RESIZE_TIMED + 2)(resize_apply), RESIZE_TIMED)
+        torch.cuda.empty_cache()
+        cold = cold_ms(fresh(RESIZE_TIMED + 1)(resize_apply), RESIZE_TIMED)
+        torch.cuda.empty_cache()
+        plain = host_ms(fresh(RESIZE_PLAIN + 1)(T.apply_batch), RESIZE_PLAIN)
+        n_bytes = float(np.mean([b for _, _, b in kept]))
+        times[shape] = (warm, cold, plain, n_bytes)
+        del kept
+        torch.cuda.empty_cache()
+        emit({"phase": "kernel_case", "kernel": "resize_apply",
+              "case": f"load_{shape}", "lanes": cfg.n_lanes,
+              "keys": RESIZE_LOAD, "slow_calls": acc["calls"],
+              "st_full_lanes": acc["lanes"], "splits": acc["splits"],
+              "statuses": sorted(acc["statuses"]),
+              "mismatches": acc["mismatches"],
+              "max_abs_err": acc["max_abs_err"], "timed_calls": RESIZE_TIMED,
+              "warm_ms": warm, "cold_ms": cold, "plain_ms": plain,
+              "bytes": n_bytes})
+        check(acc["mismatches"] == 0, f"resize_apply {shape}: disagrees "
+              f"with apply_batch in {acc['mismatches']} outputs")
+        mm_all += acc["mismatches"]
+        err_all = max(err_all, acc["max_abs_err"])
+    return {"resize_apply": (mm_all, err_all)}, times
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path through the facade
 
@@ -1207,22 +1331,35 @@ def main_path(rng, dev):
 # transactions, then the 90/10 mix at that width
 
 
+# the slow path's kernel: its launches follow the data (a write that meets
+# a full bucket), so the checks of which kernels a path runs leave it out
+SLOW_KERNEL = "resize_apply"
+_COUNTS_ZERO = {}
+
+
 def kernel_counts():
-    from repro_torch.kernels.apply import fused_apply, grouped_apply
-    from repro_torch.kernels.lookup import fused_probe, probe
-    return {f.__name__: f for f in (fused_probe, fused_apply, probe,
-                                    grouped_apply)}
+    """Launches of each of the five hand-written kernels since the last
+    ``zero_counts()``, by name, without a sync (the wrappers' own counters,
+    as ``telemetry`` reads them)."""
+    from repro_torch import telemetry
+    return {k: v - _COUNTS_ZERO.get(k, 0)
+            for k, v in telemetry._launches().items()}
 
 
 def read_counts():
     torch.cuda.synchronize()
-    return {name: f.launches for name, f in kernel_counts().items()}
+    return kernel_counts()
 
 
 def zero_counts():
+    from repro_torch import telemetry
     torch.cuda.synchronize()
-    for f in kernel_counts().values():
-        f.launches = 0
+    _COUNTS_ZERO.update(telemetry._launches())
+
+
+def ran(launches):
+    """The kernels of ``launches`` that ran, ``resize_apply`` aside."""
+    return {k: v for k, v in launches.items() if v and k != SLOW_KERNEL}
 
 
 def wide_path(t_main, oracle: Oracle, absent, rng, dev):
@@ -1385,12 +1522,13 @@ def mixed_batches(rng, live, fresh, dev, rounds):
 
 
 def profile_rounds(t, rng, dev, rounds=16):
-    """Run A times the slow path (``apply_batch`` behind ST_FULL, wrapped
+    """Run A times the slow path (``resize_apply`` behind ST_FULL, wrapped
     with synchronizing host timers); run B traces the same kind of rounds
     with torch.profiler for the device's busy time and top kernels."""
     from torch.autograd import DeviceType
 
     from repro_torch.core import table as T
+    from repro_torch.kernels import resize as kresize
 
     snap = T.to_numpy(t.state)
     live = snap["keys"][snap["live"]]
@@ -1401,12 +1539,12 @@ def profile_rounds(t, rng, dev, rounds=16):
             for i in range(2))
 
     slow = {"calls": 0, "s": 0.0}
-    apply_batch = T.apply_batch
+    resize_apply = kresize.resize_apply
 
-    def timed_apply_batch(*args):
+    def timed_resize_apply(*args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = apply_batch(*args)
+        out = resize_apply(*args)
         torch.cuda.synchronize()
         slow["s"] += time.perf_counter() - t0
         slow["calls"] += 1
@@ -1421,11 +1559,11 @@ def profile_rounds(t, rng, dev, rounds=16):
         torch.cuda.synchronize()
         return t, time.perf_counter() - t0
 
-    T.apply_batch = timed_apply_batch
+    kresize.resize_apply = timed_resize_apply
     try:
         t, wall_a = run(t, a)
     finally:
-        T.apply_batch = apply_batch
+        kresize.resize_apply = resize_apply
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1640,7 +1778,8 @@ REPLACES = {"fused_probe": "src/repro/kernels/lookup.py:192",
 def ptxas_report():
     """Registers and spills of every kernel entry (every instantiation:
     each probe at each block size and row path, ``grouped_apply`` at each
-    chunk and row type), from the ``ptxas -v`` report the build keeps
+    chunk and row type, ``resize_apply`` at each row type), from the
+    ``ptxas -v`` report the build keeps
     beside each library; ``template`` lists an entry's integer template
     arguments (a probe's threads and vector width, ``grouped_apply``'s
     lanes a thread and row slots, ``fused_apply``'s row slots)."""
@@ -1648,7 +1787,7 @@ def ptxas_report():
 
     from repro_torch.kernels import _build
     out = {}
-    for name in REPLACES:
+    for name in (*REPLACES, SLOW_KERNEL):
         log = (_build.build_dir() / f"{name}.log").read_text()
         entries, cur = [], None
         for line in log.splitlines():
@@ -1732,14 +1871,18 @@ def tile_times(t, tw, rng, dev):
     return out
 
 
-def kernel_times(t, tw, rng, dev, launches, checks, tile_rng):
+def kernel_times(t, tw, rng, dev, launches, checks, tile_rng, resize):
+    """The ``kernels`` line's entries: the four TPU counterparts timed here
+    at each path's shapes, and ``resize_apply`` from ``resize``
+    (``resize_cases``' times: ``ms`` at the wide width, the benchmark's,
+    both widths under ``width_ms``)."""
     times, info_main = fused_times(t, rng, dev)
     wide_times, info_wide = unfused_times(tw, rng, dev)
     times.update(wide_times)
     tiles = tile_times(t, tw, tile_rng, dev)
     ptxas = ptxas_report()
     emit({"phase": "ptxas", "kernels": ptxas})
-    for name in REPLACES:
+    for name in (*REPLACES, SLOW_KERNEL):
         spills = [e for e in ptxas[name]
                   if e["spill_stores"] or e["spill_loads"]]
         check(not spills, f"{name} spills: {spills}")
@@ -1753,6 +1896,12 @@ def kernel_times(t, tw, rng, dev, launches, checks, tile_rng):
           "launch_floor_cold_ms": floor_cold, **above, "ok": True})
     lines = [kernel_line(name, REPLACES[name], *times[name], launches,
                          checks) for name in REPLACES]
+    warm, cold, plain, n_bytes = resize["wide"]
+    lines.append(dict(kernel_line(SLOW_KERNEL, None, warm, plain, n_bytes, 0,
+                                  launches, checks), cold_ms=cold,
+                      width_ms={w: dict(zip(("ms", "cold_ms", "plain_ms",
+                                             "bytes"), v))
+                                for w, v in resize.items()}))
     for line in lines:
         line["registers"] = [e["registers"] for e in ptxas[line["name"]]]
         if line["name"] in ("fused_probe", "probe"):
@@ -2014,6 +2163,7 @@ def timed_schema_writes(ts, rounds, dev):
     Returns (page table, report)."""
     from repro_torch import table_api
     from repro_torch.core import table as T
+    from repro_torch.kernels import resize as kresize
     from repro_torch.table_api import Table, TableSpec
 
     raw = Table.from_state(TableSpec(**MAIN_SPEC, backend="cuda"),
@@ -2045,16 +2195,16 @@ def timed_schema_writes(ts, rounds, dev):
 
     slow = {"raw": 0, "schema": 0}
     side = ["raw"]
-    apply_batch = T.apply_batch
+    resize_apply = kresize.resize_apply
 
-    def counted_apply_batch(*args):
+    def counted_resize_apply(*args):
         slow[side[0]] += 1
-        return apply_batch(*args)
+        return resize_apply(*args)
 
     counters = kernel_counts()
     secs = {"raw": 0.0, "schema": 0.0}
     per_txn = []
-    T.apply_batch = counted_apply_batch
+    kresize.resize_apply = counted_resize_apply
     try:
         for r, (_, _, kinds, keys, page, length, status) in enumerate(rounds):
             args = [torch.tensor(x, device=dev) for x in (kinds, keys, page,
@@ -2065,7 +2215,7 @@ def timed_schema_writes(ts, rounds, dev):
             raw, res_raw = raw.apply(args[0], args[1], args[2])
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            before = {k: f.launches for k, f in counters.items()}
+            before = kernel_counts()
             side[0] = "schema"
             for name, fn in stage_fns.items():
                 setattr(table_api, fn, timed(name, originals[fn]))
@@ -2080,13 +2230,13 @@ def timed_schema_writes(ts, rounds, dev):
             t2 = time.perf_counter()
             secs["raw"] += t1 - t0
             secs["schema"] += t2 - t1
-            per_txn.append({k: f.launches - before[k]
-                            for k, f in counters.items()})
+            per_txn.append({k: v - before[k]
+                            for k, v in kernel_counts().items()})
             for res_, what in ((res_raw, "raw"), (res, "schema")):
                 check(np.array_equal(res_.status.cpu().numpy(), status),
                       f"timed {what} round {r} statuses")
     finally:
-        T.apply_batch = apply_batch
+        kresize.resize_apply = resize_apply
     torch.cuda.synchronize()
     stages = {k: 0.0 for k in SCHEMA_STAGES}
     for name, e0, e1 in events:
@@ -2227,6 +2377,7 @@ def elastic_replay(spec, trace, dev):
     from repro_torch import table_api
     from repro_torch.core import policy
     from repro_torch.core import table as T
+    from repro_torch.kernels import resize as kresize
     from repro_torch.workloads import replay
 
     traced = {k: {"calls": 0, "device_kernels": 0, "device_ms": 0.0,
@@ -2288,7 +2439,9 @@ def elastic_replay(spec, trace, dev):
                                                policy._policy_merge)),
                (policy, "_merge_candidate", counted(policy._merge_candidate,
                                                     reads)),
-               (T, "apply_batch", counted(T.apply_batch, slow))]
+               (T, "apply_batch", counted(T.apply_batch, slow)),
+               (kresize, "resize_apply", counted(kresize.resize_apply,
+                                                 slow))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -2681,12 +2834,14 @@ def chaos_timed(spec, trace, schedule, dev):
     on the restores (``restore_from_image``: kill/revive, re-shard,
     handover, torn save) and the image extractions (saves and digest
     checks), and counts of the write transactions in and out of restores
-    and of the calls of ``core/table.py::apply_batch`` (the ``plain``
-    plan's transaction, and the ``cuda`` plan's ``ST_FULL`` slow path).
+    and of the slow path's calls: ``core/table.py::apply_batch`` (the
+    ``plain`` plan's transaction) and ``kernels/resize.py::resize_apply``
+    (the ``cuda`` plan's ``ST_FULL`` slow path).
     Returns the report and {part: [calls, seconds] or counts}."""
     from repro_torch import table_api
     from repro_torch.core import snapshot as S
     from repro_torch.core import table as T
+    from repro_torch.kernels import resize as kresize
     from repro_torch.workloads.chaos import chaos_replay
 
     acc = {"restore": [0, 0.0], "extract": [0, 0.0]}
@@ -2720,7 +2875,9 @@ def chaos_timed(spec, trace, schedule, dev):
                (S, "extract_image", timed("extract", S.extract_image)),
                (table_api, "_raw_apply", counted("transactions",
                                                  table_api._raw_apply)),
-               (T, "apply_batch", counted("apply_batch", T.apply_batch))]
+               (T, "apply_batch", counted("apply_batch", T.apply_batch)),
+               (kresize, "resize_apply", counted("apply_batch",
+                                                 kresize.resize_apply))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, fn in patches:
         setattr(mod, name, fn)
@@ -3208,7 +3365,7 @@ def sharded_path(t_main, rng, dev):
             ("re-sharded mixed", mix2_launches,
              {"probe": s2 * SHARD2_ROUNDS,
               "grouped_apply": s2 * SHARD2_ROUNDS})):
-        got = {k: v for k, v in launches.items() if v}
+        got = ran(launches)
         check(got == want, f"sharded {what} launches {launches}, want "
               f"{want}")
     main = LINES["main_path"]
@@ -3398,7 +3555,6 @@ def llm_serving_path(seed, dev):
                 np.arange(1, B + 1, dtype=np.int32))
     tok = torch.tensor(rng.integers(1, cfg.vocab_size, B), dtype=torch.int32,
                        device=dev)
-    kernels = kernel_counts()
     per_step, host_reads, read_sites, marks = [], [], {}, {}
     ev = {"paged": [], "dense": [], "timed": []}
 
@@ -3426,7 +3582,7 @@ def llm_serving_path(seed, dev):
         ld, dense = M.decode_step(cfg, params, dense, tok[:, None])
         e[1].record()
         est = est._replace(tokens=tok)
-        before = [f.launches for f in kernels.values()]
+        before = kernel_counts()
         count_reads = stage == "decode" and i in LLM_READS
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -3442,8 +3598,8 @@ def llm_serving_path(seed, dev):
             for w in syncs:
                 site = f"{Path(w.filename).name}:{w.lineno}"
                 read_sites[site] = read_sites.get(site, 0) + 1
-        per_step.append([f.launches - b
-                         for f, b in zip(kernels.values(), before)])
+        per_step.append({k: v - before[k]
+                         for k, v in kernel_counts().items()})
         if stage == "decode" and LLM_TIMED[0] <= i < LLM_TIMED[1]:
             ev["timed"].append((e[2], e[3]))
         elif stage == "decode" and i >= LLM_WARMUP and not count_reads:
@@ -3567,9 +3723,9 @@ def llm_serving_path(seed, dev):
         for k in ("logit_mismatches", "table_mismatches",
                   "handover_logit_mismatches", "handover_table_mismatches"):
             check(s.get(k, 0) == 0, f"{name}: {k} {s.get(k)}")
-    steps = [dict(zip(kernels, s)) for s in per_step]
-    check(all(s == steps[0] for s in steps), f"launches vary by step: "
-          f"{sorted({tuple(s.values()) for s in steps})}")
+    steps = per_step
+    check(all(ran(s) == ran(steps[0]) for s in steps), f"launches vary by "
+          f"step: {sorted({tuple(s.values()) for s in steps})}")
     check(steps[0]["fused_probe"] > 0 and steps[0]["fused_apply"] > 0
           and steps[0]["probe"] == steps[0]["grouped_apply"] == 0,
           f"launches per decode step {steps[0]}")
@@ -3730,10 +3886,11 @@ def tree_numpy(tree):
 
 def one_per_shard(launches, calls, n_shards, kernels, what):
     """Each of the facade's calls launched each of ``kernels`` (a
-    (probe, apply) pair) exactly once per shard, and nothing else ran."""
+    (probe, apply) pair) exactly once per shard, and nothing else ran
+    (but the slow path's ``resize_apply``)."""
     want = {kernels[0]: n_shards * calls["lookup"],
             kernels[1]: n_shards * calls["apply"]}
-    got = {k: v for k, v in launches.items() if v}
+    got = ran(launches)
     check(calls["lookup"] > 0 and calls["apply"] > 0 and got == want,
           f"{what}: launches {launches} for calls {calls}, want {want}")
 
@@ -3856,7 +4013,7 @@ def sharded_serving_path(rng, dev, seed):
     add(la["before"], la["handover"], la["after"])
     one_per_shard(la["before"], la["calls_before"], n_shards,
                   ("fused_probe", "fused_apply"), "sharded router")
-    after = {k: v for k, v in la["after"].items() if v}
+    after = ran(la["after"])
     check(set(after) == {"probe", "grouped_apply"},
           f"launches after the handover onto WIDE_SPEC {la['after']}")
     check(len(la["queue_depths"]["before"]) == n_shards
@@ -4167,7 +4324,7 @@ def training_path(t_main, dev, seed):
     table_restore_s = time.perf_counter() - t0
     table_launches = read_counts()
     want = {"fused_apply": spec.n_shards * ts.seq}
-    check({k: v for k, v in table_launches.items() if v} == want,
+    check(ran(table_launches) == want,
           f"table restore launches {table_launches}, want {want}")
     a, b = extract_image(t_main), extract_image(ts)
     check(np.array_equal(a.keys, b.keys)
@@ -4825,7 +4982,7 @@ def mesh_table_path(keep, rng, dev):
               "grouped_apply": s2 * MESH_WIDE_ROUNDS}),
             ("restore", restore_launches,
              {"grouped_apply": s2 * restore_tx})):
-        got = {k: v for k, v in launches.items() if v}
+        got = ran(launches)
         check(got == want, f"mesh table {what} launches {launches}, want "
               f"{want} (one per local shard per kernel call)")
     mesh_ms = 1e3 * float(np.mean(secs["mesh"]))
@@ -5020,10 +5177,10 @@ def mesh_serving_path(dev, seed):
               f"{loop['dispatches']} dispatches ({agree_ms['calls']} timed)")
         check(len(loop["queue_depths"]) == succ.n_shards,
               f"queue depths after the handover {loop['queue_depths']}")
-        got = {k for k, v in before.items() if v}
+        got = set(ran(before))
         check(got == {"fused_probe", "fused_apply"},
               f"mesh launches before the handover {before}")
-        got = {k for k, v in after.items() if v}
+        got = set(ran(after))
         check(got == {"probe", "grouped_apply"},
               f"mesh launches after the handover {after}")
         loop_launches = total
@@ -5151,15 +5308,20 @@ def main() -> int:
              page_table_cases(np.random.default_rng([args.seed, 14]), dev)]
     for name, (mm, err) in (kv for d in extra for kv in d.items()):
         checks[name] = (checks[name][0] + mm, max(checks[name][1], err))
+    resize_checks, resize_times = resize_cases(
+        np.random.default_rng([args.seed, 29]), dev)
+    checks.update(resize_checks)
     t, launches, oracle, absent = main_path(rng, dev)
     tw, wide_launches, raw_restore_rate = wide_path(t, oracle, absent, rng,
                                                     dev)
     launches.update({k: wide_launches[k] for k in ("probe", "grouped_apply")})
+    launches[SLOW_KERNEL] += wide_launches[SLOW_KERNEL]
     plan_parity(t, rng, dev, MAIN_SPEC, 64, "main")
     plan_parity(tw, rng, dev, WIDE_SPEC, 16, "wide")
     t = profile_rounds(t, rng, dev)
     kernels = kernel_times(t, tw, rng, dev, launches, checks,
-                           np.random.default_rng([args.seed, 7]))
+                           np.random.default_rng([args.seed, 7]),
+                           resize_times)
     tuning_path(t, tw, np.random.default_rng([args.seed, 23]), dev)
     schema_path(rng, dev, raw_restore_rate)
     elastic_path(args.seed, dev)

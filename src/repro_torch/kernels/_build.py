@@ -20,7 +20,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_probe.cu", "fused_apply.cu", "probe.cu",
-           "grouped_apply.cu")
+           "grouped_apply.cu", "resize_apply.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,18 +82,19 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def load(source: str, fn: str, argtypes):
+def load(source: str, fn: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``fn`` of ``source``'s library, built if needed,
     with its argument types declared (pointers and the stream as
-    ``c_void_p``, integers as ``c_int``); it returns a cudaError_t. The
-    library is opened and the types are set once per ``(source, fn)``;
-    later calls return the same entry point."""
+    ``c_void_p``, integers as ``c_int``); it returns ``restype``, a
+    cudaError_t unless the caller says otherwise. The library is opened
+    and the types are set once per ``(source, fn)``; later calls return the
+    same entry point."""
     f = _entry_points.get((source, fn))
     if f is None:
         build_all()
         f = getattr(ctypes.CDLL(str(_lib_path(source))), fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = restype
         _entry_points[(source, fn)] = f
     return f
 

@@ -22,8 +22,9 @@ memory) and share one combine step (``csrc/bucket_row.cuh``), as both plain
 versions share ``core/table.py::wave_combine``.
 
 Ops never resize here: an op that meets a full bucket reports ``ST_FULL``
-and is left to the split rounds of ``core/table.py::apply_batch`` (the
-paper's FAIL → ResizeWF slow path, wired in ``kernels/ops.py``).
+and is left to the bounded split rounds of ``kernels/resize.py`` (on CPU
+tensors ``core/table.py::apply_batch``), the paper's FAIL → ResizeWF slow
+path, wired in ``kernels/ops.py``.
 """
 from __future__ import annotations
 

@@ -8,8 +8,9 @@ launch on the ops in lane order. The probes launch in the plan's lookup
 tiles and ``grouped_apply`` in its apply tiles (``kernels/tuning.py``).
 The bookkeeping around the kernels is shared: seq gating, occupancy
 counts from the kernel's statuses, the frozen / replay / NOP status
-overlays; ops the kernel reports ``ST_FULL`` re-enter the plain
-transaction, which runs the bounded split rounds — the paper's fast
+overlays; ops the kernel reports ``ST_FULL`` go to ``resize_apply``
+(``kernels/resize.py``), which runs the bounded split rounds in one launch
+on the card and as the plain transaction on the CPU — the paper's fast
 (ApplyWFOp) / slow (ResizeWF) structure.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch import telemetry
 from repro_torch.core import table as T
 from repro_torch.kernels import apply as kapply
 from repro_torch.kernels import lookup as klookup
+from repro_torch.kernels import resize as kresize
 from repro_torch.kernels.apply import ST_FROZEN, ST_FULL
 from repro_torch.kernels.plan import KernelPlan
 
@@ -57,7 +59,8 @@ def _count_applied(cfg, state, ops, status, bid, live, frozen_hit):
 def _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit, replay):
     """Shared tail of a kernel transaction: the ST_FULL slow path and the
     replay/frozen/NOP status overlays. Only ops that hit a full bucket
-    re-enter the plain transaction; everyone else is masked to NOP."""
+    enter the slow path (``resize_apply``); everyone else is masked to
+    NOP."""
     need_slow = live & (status == ST_FULL)
     telemetry.count_device("txn.live_lanes", live)
     telemetry.count_device("slow.lanes", need_slow)
@@ -66,7 +69,7 @@ def _finish_kernel_apply(cfg, st, ops, status, live, frozen_hit, replay):
         telemetry.count("slow.calls")
         slow_ops = T.OpBatch(kind=torch.where(need_slow, ops.kind, T.NOP),
                              key=ops.key, value=ops.value, seq=ops.seq)
-        st, res = T.apply_batch(cfg, st, slow_ops)
+        st, res = kresize.resize_apply(cfg, st, slow_ops)
         slow_status = res.status
     final = torch.where(need_slow, slow_status, status).to(torch.int8)
     final = torch.where(frozen_hit, T.FROZEN, final).to(torch.int8)

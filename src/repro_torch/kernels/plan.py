@@ -15,8 +15,8 @@ the hot path:
                lookups route in PyTorch and launch ``probe``: a table whose
                writes leave the fused kernel routes its lookups the same
                way, as the JAX package does past its own fused bounds. Ops
-               that meet a full bucket take the ``ST_FULL`` →
-               ``apply_batch`` fallback. On CPU tensors each kernel wrapper
+               that meet a full bucket take the ``ST_FULL`` slow path
+               (``kernels/resize.py``). On CPU tensors each kernel wrapper
                runs its plain version, so this path also runs on the CPU.
 
 ``backend="auto"`` resolves to ``"cuda"`` on a CUDA device and to

@@ -29,7 +29,7 @@ Inside ``collect()`` (one at a time in a process; spans from any thread):
 
 Program spans are named ``repro.<layer>.<what>``: ``facade``, ``payload``,
 ``dispatch``, ``core`` and ``sync``. When ``collect()`` closes, its
-:class:`Record` holds the spans, the counters (the four kernel wrappers'
+:class:`Record` holds the spans, the counters (the five kernel wrappers'
 ``.launches`` deltas among them, as ``kernel.<name>.launches``) and a
 summary per span name: calls, total and self nanoseconds (self: the
 duration less the durations of its child spans).
@@ -84,7 +84,11 @@ class Record:
     def _close(self, launches_before, launches_after):
         end = time.perf_counter_ns()
         for (name, _, _), acc in self._device.items():
-            self._add(name, int(acc.sum().item()))
+            if isinstance(name, tuple):
+                for one, n in zip(name, acc.tolist()):
+                    self._add(one, n)
+            else:
+                self._add(name, int(acc.sum().item()))
         self._device = {}
         for name, n in launches_after.items():
             self._add(f"kernel.{name}.launches", n - launches_before[name])
@@ -164,11 +168,12 @@ def count(name: str, n: int = 1) -> None:
         _record._add(name, n)
 
 
-def count_device(name: str, t: torch.Tensor) -> None:
+def count_device(name, t: torch.Tensor) -> None:
     """Add the sum of the device tensor ``t`` (a mask, say) to the counter
     ``name`` without a sync (inside ``collect()``): ``t`` is added into an
     int64 accumulator of its shape, which is summed when the record
-    closes."""
+    closes. With a tuple of names, ``t`` is 1-d and each element goes to
+    its own counter."""
     if not _ON:
         return
     rec = _record
@@ -211,10 +216,12 @@ def host_write(site: str, x: torch.Tensor, index, value) -> None:
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import apply, lookup
-    return {f.__name__: f.launches for f in (lookup.fused_probe, lookup.probe,
-                                             apply.fused_apply,
-                                             apply.grouped_apply)}
+    from repro_torch.kernels import apply, lookup, resize
+    out = {f.__name__: f.launches for f in (lookup.fused_probe, lookup.probe,
+                                            apply.fused_apply,
+                                            apply.grouped_apply)}
+    out["resize_apply"] = resize.launches
+    return out
 
 
 @contextlib.contextmanager

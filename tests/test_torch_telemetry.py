@@ -410,7 +410,8 @@ def test_card_audit_schema_update(cuda):
 def test_card_audit_grouped_apply_slow_path(cuda):
     """One write of the paper-int cell's path: a 4,096-lane
     ``grouped_apply`` transaction whose inserts meet full buckets, so the
-    slow path runs its split rounds."""
+    slow path runs its split rounds: in one ``resize_apply`` launch, with
+    no host sync past the ``need_slow`` read, whatever the rounds."""
     torch.manual_seed(0)
     spec = TableSpec(backend="cuda", dmax=16, bucket_size=8,
                      pool_size=2**14, n_lanes=4096, initial_depth=8)
@@ -427,12 +428,11 @@ def test_card_audit_grouped_apply_slow_path(cuda):
     counted, missed, rec = _audit(write)
     c = rec.counters
     assert c["kernel.grouped_apply.launches"] == 1
+    assert c["kernel.resize_apply.launches"] == 1
     assert c["slow.calls"] == 1 and c["slow.lanes"] > 0
-    r = c["slow.rounds"]
-    assert r >= 1 and missed == {}
+    assert c["slow.rounds"] >= 1 and c["slow.splits"] >= 1
+    assert missed == {}
     assert {k: v for k, v in c.items() if k.startswith("sync.")} == {
-        "sync.need_slow": 1, "sync.applied": 1, "sync.fast_pass": 1,
-        "sync.pending": r + 1, "sync.waves": r, "sync.wave_pass": r,
-        "sync.split_pass": 2 * r, "sync.splits": 10 * r}
-    assert counted == 4 + 15 * r
+        "sync.need_slow": 1, "sync.applied": 1}
+    assert counted == 2
     assert (out["res"].status == 1).all()

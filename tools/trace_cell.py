@@ -112,21 +112,24 @@ HOST_METRICS = (host_syncs_per_round, sync_wait_ms_per_round,
 
 
 def hand_count(rec, n_lanes):
-    """The ``sync.*`` counts the code implies on a card, by site. A kernel
+    """The ``sync.*`` counts the code implies, by site. A kernel
     transaction: one ``need_slow`` read, one ``applied`` write, and on a
-    schema table four ``reconcile`` writes. A slow-path call: one
-    ``fast_pass`` write past 256 lanes, one ``pending`` read a round and
-    one more where the call ends before its bound (22 rounds in every
-    cell, far above what a call runs). A round of it: one ``waves`` read,
-    one ``wave_pass`` write, two ``split_pass`` and ten ``splits`` writes.
-    (On CPU tensors the plain kernels' wave loops add one ``waves`` read a
-    transaction.)"""
+    schema table four ``reconcile`` writes. On a card the slow path is one
+    ``resize_apply`` launch and syncs nowhere. On CPU tensors it is the
+    plain transaction: a call makes one ``fast_pass`` write past 256
+    lanes, one ``pending`` read a round and one more where the call ends
+    before its bound (22 rounds in every cell, far above what a call
+    runs); a round of it one ``waves`` read, one ``wave_pass`` write, two
+    ``split_pass`` and ten ``splits`` writes; and the plain kernels' wave
+    loops add one ``waves`` read a transaction (not counted here)."""
     if rec is None:
         return None
     c = rec.counters
     txns = rec.summary.get("repro.facade.txn", {}).get("calls", 0)
     schema = "repro.payload.reconcile" in rec.summary
     rounds, calls = c.get("slow.rounds", 0), c.get("slow.calls", 0)
+    if c.get("kernel.resize_apply.launches"):
+        rounds = calls = 0
     want = {"sync.need_slow": txns, "sync.applied": txns,
             "sync.reconcile": 4 * txns if schema else 0,
             "sync.fast_pass": calls if n_lanes > T._PAIRWISE_MAX_LANES
