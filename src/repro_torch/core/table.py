@@ -19,7 +19,8 @@ state. The design rules are those of the JAX package:
                pending ops that forced them.
 
 Directory doubling is logical over a static-capacity directory (2**dmax
-physical entries, each always pointing at its owning bucket).
+physical entries, each always pointing at its owning bucket): it costs
+4 * 2**dmax bytes from the start, 4 MiB at dmax 20 and 4 GiB at dmax 30.
 
 The state is a ``TableState`` of torch tensors on one device. Transactions
 update the pool and per-bucket tensors **in place** and return the state:
@@ -43,6 +44,11 @@ from repro_torch.core.hashing import (EMPTY_KEY, child_bit, dir_index,
 NOP = 0
 INS = 1
 DEL = 2
+
+# The deepest directory: 2**30 int32 entries (4 GiB). The JAX package stops
+# at 20 bits; here the CUDA route (``h >> (32 - dmax)``) works for any
+# dmax up to 32 less the top hash bits a sharded table spends on the shard.
+DMAX_LIMIT = 30
 
 # Result status codes. TRUE/FALSE match the paper's semantics:
 #   Insert → TRUE iff the key was newly inserted (FALSE = value updated);
@@ -84,7 +90,12 @@ class TableConfig:
                                 # the serial wave loop (equivalence oracle)
 
     def __post_init__(self):
-        assert 1 <= self.dmax <= 20
+        if not 1 <= self.dmax <= DMAX_LIMIT:
+            raise ValueError(f"dmax {self.dmax} outside [1, {DMAX_LIMIT}]")
+        if self.dmax + self.hash_shift > 32:
+            raise ValueError(f"dmax {self.dmax} + hash_shift (a sharded "
+                             f"spec's shard_bits) {self.hash_shift} > 32: "
+                             f"the route would run out of hash bits")
         assert self.initial_depth <= self.dmax
         assert self.pool_size >= (1 << self.initial_depth)
 
@@ -145,34 +156,37 @@ class BatchResult(NamedTuple):
 
 def init_table(cfg: TableConfig, device=None) -> TableState:
     dev = resolve_device(device)
-    P, B, n = cfg.pool_size, cfg.bucket_size, cfg.n_lanes
-    nb = 1 << cfg.initial_depth
-    shift = cfg.dmax - cfg.initial_depth
-    live = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    live[:nb] = True
-    bdepth = torch.zeros(P + 1, dtype=I32, device=dev)
-    bdepth[:nb] = cfg.initial_depth
-    bprefix = torch.zeros(P + 1, dtype=I32, device=dev)
-    bprefix[:nb] = torch.arange(nb, dtype=I32, device=dev)
-    scalar = lambda v, dt=I32: torch.tensor(v, dtype=dt, device=dev)
-    return TableState(
-        directory=torch.arange(cfg.dcap, dtype=I32, device=dev) >> shift,
-        depth=scalar(cfg.initial_depth),
-        keys=torch.full((P + 1, B), EMPTY_KEY, dtype=I32, device=dev),
-        vals=torch.zeros((P + 1, B), dtype=I32, device=dev),
-        bdepth=bdepth,
-        bprefix=bprefix,
-        live=live,
-        frozen=torch.zeros(P + 1, dtype=torch.bool, device=dev),
-        nalloc=scalar(nb),
-        free_stack=torch.zeros(P + 1, dtype=I32, device=dev),
-        free_top=scalar(0),
-        applied_seq=torch.zeros(n, dtype=I32, device=dev),
-        last_status=torch.zeros(n, dtype=torch.int8, device=dev),
-        error=scalar(False, torch.bool),
-        counts=torch.zeros(P + 1, dtype=I32, device=dev),
-        policy_counts=torch.zeros(2, dtype=I32, device=dev),
-    )
+    with telemetry.span("repro.core.init_table"):
+        P, B, n = cfg.pool_size, cfg.bucket_size, cfg.n_lanes
+        nb = 1 << cfg.initial_depth
+        shift = cfg.dmax - cfg.initial_depth
+        live = torch.zeros(P + 1, dtype=torch.bool, device=dev)
+        live[:nb] = True
+        bdepth = torch.zeros(P + 1, dtype=I32, device=dev)
+        bdepth[:nb] = cfg.initial_depth
+        bprefix = torch.zeros(P + 1, dtype=I32, device=dev)
+        bprefix[:nb] = torch.arange(nb, dtype=I32, device=dev)
+        scalar = lambda v, dt=I32: torch.tensor(v, dtype=dt, device=dev)
+        directory = torch.arange(cfg.dcap, dtype=I32, device=dev)
+        directory >>= shift      # in place: no second directory-sized buffer
+        return TableState(
+            directory=directory,
+            depth=scalar(cfg.initial_depth),
+            keys=torch.full((P + 1, B), EMPTY_KEY, dtype=I32, device=dev),
+            vals=torch.zeros((P + 1, B), dtype=I32, device=dev),
+            bdepth=bdepth,
+            bprefix=bprefix,
+            live=live,
+            frozen=torch.zeros(P + 1, dtype=torch.bool, device=dev),
+            nalloc=scalar(nb),
+            free_stack=torch.zeros(P + 1, dtype=I32, device=dev),
+            free_top=scalar(0),
+            applied_seq=torch.zeros(n, dtype=I32, device=dev),
+            last_status=torch.zeros(n, dtype=torch.int8, device=dev),
+            error=scalar(False, torch.bool),
+            counts=torch.zeros(P + 1, dtype=I32, device=dev),
+            policy_counts=torch.zeros(2, dtype=I32, device=dev),
+        )
 
 
 _NP_DTYPES = {torch.int32: np.int32, torch.int8: np.int8,
@@ -551,12 +565,11 @@ def _do_splits(cfg: TableConfig, st: TableState, split_ids, valid):
     ``split_ids`` i32[k_max] names the parents (masked entries become the
     trash row via ``valid``); the pass allocates child pairs, moves items
     by the (depth+1)-th hash bit, retires the parents onto the free stack
-    and rewrites the directory in one vectorized sweep. Returns
+    and rewrites each parent's directory range in place. Returns
     ``(state, k_split)``."""
     P, B = cfg.pool_size, cfg.bucket_size
     dev = split_ids.device
     k_max = split_ids.shape[0]
-    iota = _iota(P + 1, dev)
     split_ids = torch.where(valid, split_ids, P).long()
     k = valid.sum().to(I32)
 
@@ -612,28 +625,23 @@ def _do_splits(cfg: TableConfig, st: TableState, split_ids, valid):
     st.free_stack[push_pos.long()] = split_ids.to(I32)
     free_top = (st.free_top + k).to(I32)
 
-    # --- DirectoryUpdate: one vectorized pass over the physical entries ---
-    is_split = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    telemetry.host_write("splits", is_split, dead_ids, True)
-    telemetry.host_write("splits", is_split, P, False)
-    c0_of = iota.clone()
-    c0_of[dead_ids] = id0.to(I32)
-    c1_of = iota.clone()
-    c1_of[dead_ids] = id1.to(I32)
-    # physical midpoint of the parent's directory range
-    mid_of = torch.zeros(P + 1, dtype=I32, device=dev)
-    mid_of[dead_ids] = ((pp * 2 + 1)
-                        << torch.clamp(cfg.dmax - (pd + 1), min=0)).to(I32)
-    own = st.directory.long()
-    e = _iota(cfg.dcap, dev)
-    new_dir = torch.where(is_split[own],
-                          torch.where(e < mid_of[own], c0_of[own],
-                                      c1_of[own]),
-                          st.directory)
+    # --- DirectoryUpdate: each parent's range, and nothing else ---
+    # a parent at depth pd owns 2**(dmax - pd) entries from pp << (dmax -
+    # pd): the lower half goes to id0, the upper to id1. One pass's parents
+    # are distinct live buckets, so their ranges are disjoint; their total
+    # sizes the pass (one read), never the 2**dmax directory
+    shift = (cfg.dmax - pd).clamp(min=0).long()
+    size = torch.where(valid, torch.ones_like(shift) << shift, 0)
+    total = telemetry.host_read("splits", size.sum())
+    telemetry.count("slow.dir_writes", total)
+    which = torch.repeat_interleave(rankpos, size, output_size=total)
+    off = _iota(total, dev) - (torch.cumsum(size, 0) - size)[which]
+    st.directory[(pp.long() << shift)[which] + off] = torch.where(
+        off < size[which] >> 1, id0[which], id1[which]).to(I32)
     # logical doubling: a scalar bump — the physical directory is static
     depth = torch.maximum(st.depth,
                           torch.where(valid, pd + 1, 0).max()).to(I32)
-    st = st._replace(directory=new_dir, depth=depth, free_top=free_top)
+    st = st._replace(depth=depth, free_top=free_top)
     return st, k
 
 
@@ -876,13 +884,13 @@ def merge_buddies(cfg: TableConfig, state: TableState, parent_prefix: int,
     free_top = torch.where(ok, free_top + 2, free_top)
 
     # directory: the parent's whole range points at the merged bucket
-    e = _iota(cfg.dcap, dev)
-    in_range = ok & ((e >> max(cfg.dmax - parent_depth, 0)) == parent_prefix)
-    directory = torch.where(in_range, new_id.to(I32), state.directory)
+    shift = max(cfg.dmax - parent_depth, 0)
+    rng = state.directory[parent_prefix << shift:(parent_prefix + 1) << shift]
+    rng.copy_(torch.where(ok, new_id.to(I32), rng))
     # logical shrink: recompute the depth scalar from live buckets
     depth = torch.where(live, bdepth, 0).max()
 
     st = state._replace(
-        directory=directory, depth=depth.to(I32), nalloc=nalloc.to(I32),
+        depth=depth.to(I32), nalloc=nalloc.to(I32),
         free_top=free_top.to(I32), error=error)
     return st, ok

@@ -11,11 +11,12 @@
 // moves 216,576 B, 0.065 us at 3.35 TB/s, yet takes 0.8 us above the
 // launch floor (1.1 us with the value read after the match; PERF.md §6).
 // Per query the chain was four round trips: the query, its directory entry
-// (4 MiB at dmax = 20, which stays in the 50 MB L2), the 8-key row of its
-// bucket and, only after the match, one value. It is now three:
-// row_probe.cuh reads the row's values beside its keys and picks the match
-// in registers, and the 64-thread blocks (the default; the block size is
-// a launch argument) spread a lookup over 72 SMs instead of 18. The first
+// (the directory is 4 MiB at dmax = 20, which stays in the 50 MB L2, but 4
+// GiB at dmax = 30, where the entry and the row both come from HBM), the
+// 8-key row of its bucket and, only after the match, one value. It is now
+// three: row_probe.cuh reads the row's values beside its keys and picks the
+// match in registers, and the 64-thread blocks (the default; the block size
+// is a launch argument) spread a lookup over 72 SMs instead of 18. The first
 // two steps stay in series: the route needs the query's hash, the row
 // needs the route.
 //

@@ -23,7 +23,9 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// hash_shift is in [0, 32); dmax in [1, 20]
+// hash_shift is in [0, 32) and dmax in [1, 30], with dmax + hash_shift <=
+// 32 (core/table.py's TableConfig refuses the rest): the route keeps dmax
+// of the 32 - hash_shift bits the shift leaves, and its index is below 2**30
 __device__ __forceinline__ uint32_t table_hash(int32_t key, int hash_id,
                                                int hash_shift) {
   uint32_t h = static_cast<uint32_t>(key);

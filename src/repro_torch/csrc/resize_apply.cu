@@ -54,7 +54,15 @@
 // block's barriers (a bitonic sort of m entries takes log2(m)(log2(m)+1)/2
 // of them) and its dependent reads of directory entries, bucket rows and
 // the free stack take microseconds. A split's directory range is 2**(dmax -
-// depth) entries, spread over every thread.
+// depth) entries, spread over every thread: at dmax 30 a split at depth 23
+// rewrites 128 entries, and one at a depth under 10 over a million, which
+// the one block writes at a fraction of the card's bandwidth.
+//
+// Ranges: dmax <= 30, so a parent's range (at most 2**30 entries), the sum
+// of one pass's ranges (the parents are distinct live buckets, so their
+// ranges are disjoint: at most 2**30) and every directory index fit an int;
+// the count of entries written over all passes of a call need not, and is
+// kept in 64 bits.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -114,7 +122,7 @@ struct Args {
   int32_t* nalloc;
   int32_t* free_top;
   uint8_t* error;
-  int32_t* stats;  // rounds, waves, splits
+  long long* stats;  // rounds, waves, splits, directory entries written
   int n, B, P, dmax, hash_id, hash_shift, rounds, fast_order;
 };
 
@@ -167,6 +175,7 @@ struct Shared {
   int depth, nalloc, free_top, error;
   int new_depth, run_max;
   int rounds, waves, splits;
+  long long dir_writes;
 };
 
 // Exclusive prefix sum of v over the block in thread order; `total` gets
@@ -413,6 +422,7 @@ __device__ void split_pass(Shared& s, Lists& l, const Args& a) {
     if (r < k) l.range[r] = total_entries + off;
     total_entries += total;
   }
+  if (threadIdx.x == 0) s.dir_writes += total_entries;
   __syncthreads();
   for (int t = threadIdx.x; t < total_entries; t += kThreads) {
     int lo = 0, hi = k - 1;  // the last range starting at or before t
@@ -519,6 +529,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     s.free_top = *a.free_top_in;
     s.error = *a.error_in;
     s.rounds = s.waves = s.splits = 0;
+    s.dir_writes = 0;
   }
   __syncthreads();
 
@@ -565,6 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     a.stats[0] = s.rounds;
     a.stats[1] = s.waves;
     a.stats[2] = s.splits;
+    a.stats[3] = s.dir_writes;
   }
 }
 
@@ -591,14 +603,17 @@ extern "C" long long resize_apply_scratch_bytes(int n) {
 // ptrs: kNumPtrs device pointers in the order of enum Ptr (the TableState's
 // tensors, the ops, the outputs, then the scratch, null where
 // resize_apply_scratch_bytes(n) is 0); the pools are [P+1, B] int32; bool
-// tensors are one byte each. fast_order is cfg.use_fast_path. Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for n < 1, B < 1, P
-// < 1, dmax outside [1, 20], a missing scratch or rounds < 0.
+// tensors are one byte each; stats is int64[4]. fast_order is
+// cfg.use_fast_path. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for n < 1, B < 1, P < 1, dmax outside [1, 30],
+// dmax + hash_shift > 32, a missing scratch or rounds < 0. The directory
+// holds 2**dmax entries (4 GiB at dmax 30).
 extern "C" int resize_apply_launch(void* const* ptrs, int n, int B, int P,
                                    int dmax, int hash_id, int hash_shift,
                                    int rounds, int fast_order, void* stream) {
   auto* scratch = static_cast<unsigned char*>(ptrs[kScratch]);
-  if (n < 1 || B < 1 || P < 1 || dmax < 1 || dmax > 20 || rounds < 0 ||
+  if (n < 1 || B < 1 || P < 1 || dmax < 1 || dmax > 30 ||
+      hash_shift < 0 || dmax + hash_shift > 32 || rounds < 0 ||
       (scratch == nullptr && resize_apply_scratch_bytes(n) != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -628,7 +643,7 @@ extern "C" int resize_apply_launch(void* const* ptrs, int n, int B, int P,
   a.nalloc = static_cast<int32_t*>(ptrs[kNalloc]);
   a.free_top = static_cast<int32_t*>(ptrs[kFreeTop]);
   a.error = static_cast<uint8_t*>(ptrs[kError]);
-  a.stats = static_cast<int32_t*>(ptrs[kStats]);
+  a.stats = static_cast<long long*>(ptrs[kStats]);
   a.n = n;
   a.B = B;
   a.P = P;

@@ -34,8 +34,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import (check_i32_vector, check_pools,
                                          check_tensor)
 
-# the device counts the kernel writes, in order
-STATS = ("slow.rounds", "slow.waves", "slow.splits")
+# the device counts the kernel writes, in order (int64: the directory
+# entries a call's splits rewrite can pass 2**31 at dmax 30)
+STATS = ("slow.rounds", "slow.waves", "slow.splits", "slow.dir_writes")
 
 # launches so far; kept on the module, so that a wrapper patched over
 # ``resize_apply`` (a timer, a counter) leaves the count whole
@@ -78,9 +79,10 @@ def resize_apply(cfg: T.TableConfig, state: T.TableState, ops: T.OpBatch):
     updated **in place**; ``depth``, ``nalloc``, ``free_top``, ``error``,
     ``applied_seq`` and ``last_status`` come back as new tensors. ``state``
     is consumed. Returns ``(state, BatchResult)`` as ``apply_batch`` does.
-    Inside ``telemetry.collect()`` the kernel's rounds, waves and splits
-    are added to ``slow.rounds``, ``slow.waves`` and ``slow.splits``
-    without a sync. Each launch adds one to the module's ``launches``."""
+    Inside ``telemetry.collect()`` the kernel's rounds, waves, splits and
+    the directory entries its splits rewrote are added to ``slow.rounds``,
+    ``slow.waves``, ``slow.splits`` and ``slow.dir_writes`` without a
+    sync. Each launch adds one to the module's ``launches``."""
     global launches
     dev = ops.kind.device
     _check(cfg, state, ops, dev)
@@ -97,7 +99,7 @@ def resize_apply(cfg: T.TableConfig, state: T.TableState, ops: T.OpBatch):
         depth, nalloc, free_top = (torch.empty((), dtype=torch.int32,
                                                device=dev) for _ in range(3))
         error = torch.empty((), dtype=torch.bool, device=dev)
-        stats = torch.empty(len(STATS), dtype=torch.int32, device=dev)
+        stats = torch.empty(len(STATS), dtype=torch.int64, device=dev)
         extra = _scratch_bytes(n)
         scratch = (torch.empty(extra, dtype=torch.uint8, device=dev)
                    if extra else None)

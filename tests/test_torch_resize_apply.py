@@ -301,10 +301,12 @@ def test_a_wrapper_patched_over_the_kernel_keeps_its_count(monkeypatch):
 
 def test_stats_counters_take_one_name_per_element():
     with telemetry.collect() as rec:
-        telemetry.count_device(kresize.STATS, torch.tensor([1, 2, 3]))
-        telemetry.count_device(kresize.STATS, torch.tensor([4, 0, 1]))
+        telemetry.count_device(kresize.STATS,
+                               torch.tensor([1, 2, 3, 2**31 - 1]))
+        telemetry.count_device(kresize.STATS, torch.tensor([4, 0, 1, 2**30]))
     assert {k: rec.counters[k] for k in kresize.STATS} == {
-        "slow.rounds": 5, "slow.waves": 2, "slow.splits": 4}
+        "slow.rounds": 5, "slow.waves": 2, "slow.splits": 4,
+        "slow.dir_writes": 2**31 - 1 + 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -323,21 +325,23 @@ LANES = ("applied_seq", "last_status")
 
 
 def assert_same(cfg, got_st, got, ref_st, ref, lanes=None):
-    """Field by field and lane by lane. ``lanes`` (a bool mask) limits the
-    per-lane comparison, and leaves the trash row out of the pools."""
-    a, b = T.to_numpy(got_st), T.to_numpy(ref_st)
+    """Field by field and lane by lane, on the device (a dmax-30 directory
+    is 4 GiB), and on the host where they differ, for the message.
+    ``lanes`` (a bool mask) limits the per-lane comparison, and leaves the
+    trash row out of the pools."""
     P = cfg.pool_size
-    for f in T.TableState._fields:
-        x, y = a[f], b[f]
+    if lanes is not None:
+        lanes = torch.as_tensor(lanes, device=got.status.device)
+    pairs = [(f, getattr(got_st, f), getattr(ref_st, f))
+             for f in T.TableState._fields]
+    for f, x, y in pairs + [("status", got.status, ref.status)]:
         if lanes is not None and f in POOLS:
             x, y = x[:P], y[:P]
-        if lanes is not None and f in LANES:
+        if lanes is not None and f in LANES + ("status",):
             x, y = x[lanes], y[lanes]
-        np.testing.assert_array_equal(x, y, err_msg=f)
-    x, y = got.status.cpu().numpy(), ref.status.cpu().numpy()
-    if lanes is not None:
-        x, y = x[lanes], y[lanes]
-    np.testing.assert_array_equal(x, y, err_msg="status")
+        if not torch.equal(x, y):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy(),
+                                          err_msg=f)
 
 
 def card_sweep(cfg, dev, kernel, stream, freeze_at=None, exhaustion=False,
@@ -348,7 +352,7 @@ def card_sweep(cfg, dev, kernel, stream, freeze_at=None, exhaustion=False,
     trash row."""
     P = cfg.pool_size
     seen = dict(calls=0, lanes=0, free_top=[], status=[], rounds=0,
-                splits=0, trash_lanes=0)
+                splits=0, trash_lanes=0, depth=0, dir_writes=0)
 
     def on_slow(cfg, st, ops):
         if freeze_slow and seen["calls"] == 0:
@@ -390,7 +394,7 @@ def card_sweep(cfg, dev, kernel, stream, freeze_at=None, exhaustion=False,
         assert c_got["kernel.resize_apply.launches"] == 1
         if lanes is None or lanes.all():
             # held lanes keep the kernel's rounds going to the bound
-            for k in ("slow.rounds", "slow.waves"):
+            for k in ("slow.rounds", "slow.waves", "slow.dir_writes"):
                 assert c_got.get(k, 0) == c_ref.get(k, 0), k
         if not bool(ref_st.error):
             assert c_got.get("slow.splits", 0) == (
@@ -399,6 +403,8 @@ def card_sweep(cfg, dev, kernel, stream, freeze_at=None, exhaustion=False,
         seen["lanes"] += int((ops.kind != T.NOP).sum())
         seen["rounds"] += c_got.get("slow.rounds", 0)
         seen["splits"] += c_got.get("slow.splits", 0)
+        seen["dir_writes"] += c_got.get("slow.dir_writes", 0)
+        seen["depth"] = max(seen["depth"], int(got_st.depth))
         seen["status"].append(got.status.cpu().numpy())
         return got_st, got
 
@@ -423,6 +429,28 @@ def test_card_benchmark_geometries(cuda, name):
                      preload=2**17 // n)
     seen = card_sweep(cfg, cuda, kernel, stream)
     assert seen["splits"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,n,preload", [("fused", 1024, 4),
+                                              ("grouped", 4096, 1)])
+def test_card_dmax_30(cuda, kernel, n, preload):
+    """A 30-bit directory (2**30 entries, 4 GiB): 4,096 keys under eight
+    20-bit hash prefixes (identity hash) load into depth-20 buckets and
+    split them to depth 21 and past, then mixed writes; every slow call's
+    statuses and state, directory included, as ``apply_batch``'s, and its
+    directory writes as the plain pass counts them."""
+    cfg = T.TableConfig(dmax=30, bucket_size=8, pool_size=2**20 + 2**14,
+                        n_lanes=n, initial_depth=20, hash_name="identity")
+    rng = np.random.default_rng(30 + n)
+    prefixes = rng.choice(np.arange(1, 1 << 19), size=8, replace=False)
+    universe = rng.permutation(((prefixes[:, None] << 12)
+                                | np.arange(1 << 12)).ravel()
+                               ).astype(np.int32)
+    stream = batches(rng, n, 2, universe, kinds=(1, 1, 2), preload=preload)
+    seen = card_sweep(cfg, cuda, kernel, stream)
+    assert seen["splits"] > 0 and seen["depth"] >= 23
+    assert seen["dir_writes"] >= seen["splits"] * 2**(30 - seen["depth"])
 
 
 SWEEP = [(n, b) for n in (16, 1024, 4096) for b in (4, 8, 32)]

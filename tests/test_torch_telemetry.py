@@ -196,7 +196,7 @@ def test_slow_lanes_and_syncs_from_a_full_bucket(monkeypatch, case):
             "pending": rounds + n_calls,
             # + one wave loop a transaction in the kernel's plain version
             "waves": rounds + txns, "wave_pass": rounds,
-            "split_pass": 2 * rounds, "splits": 10 * rounds,
+            "split_pass": 2 * rounds, "splits": 9 * rounds,
             "fast_pass": n_calls if geom["n_lanes"] > 256 else 0}
     assert {k: c.get(f"sync.{k}", 0) for k in want} == want
     assert sum(v for k, v in c.items() if k.startswith("sync.")) == sum(
@@ -204,6 +204,35 @@ def test_slow_lanes_and_syncs_from_a_full_bucket(monkeypatch, case):
     for name, n in want.items():
         if n:
             assert rec.summary[f"repro.sync.{name}"]["calls"] == n
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_dir_writes_equal_the_hand_count(backend):
+    """``slow.dir_writes`` equals a hand count from the final layout: no
+    merge ran, so the split parents are the proper ancestors, at the
+    initial depth or below it, of the live buckets, and each split
+    rewrote its parent's whole range, Σ 2**(dmax - child depth) over its
+    two children. ``Table.create`` builds the state in one
+    ``repro.core.init_table`` span."""
+    geom = dict(dmax=12, bucket_size=4, pool_size=1024, n_lanes=64,
+                initial_depth=2)
+    with telemetry.collect() as rec:
+        t = Table.create(TableSpec(backend=backend, **geom), device="cpu")
+        keys = torch.arange(1, 400, dtype=torch.int32)
+        t, res = t.insert(keys, keys)
+        t, res2 = t.delete(keys[::5].contiguous())
+    assert (res.status == 1).all() and (res2.status == 1).all()
+    st, dmax = t.state, geom["dmax"]
+    parents = set()
+    for b in torch.nonzero(st.live[:-1]).flatten().tolist():
+        d, p = int(st.bdepth[b]), int(st.bprefix[b])
+        parents |= {(p >> (d - j), j)
+                    for j in range(geom["initial_depth"], d)}
+    children = [(2 * p + c, j + 1) for p, j in parents for c in (0, 1)]
+    c = rec.counters
+    assert c["slow.dir_writes"] == sum(
+        1 << (dmax - j) for _, j in children) > 0
+    assert rec.summary["repro.core.init_table"]["calls"] == 1
 
 
 def test_spans_reach_the_profiler_inside_collect_only():

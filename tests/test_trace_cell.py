@@ -1,9 +1,10 @@
 """``tools/trace_cell.py`` on the CPU: the tiny benchmark cells run
 traced with the program's telemetry on, their checks still pass and the
 benchmark's own metrics are still reported, beside the program-side
-metrics (``payload_host_ms_per_round`` on the schema cells only); each
-metric is None without its record; device idle time is put down to the
-innermost program span."""
+metrics (``payload_host_ms_per_round`` on the schema cells only), the
+directory entries the splits rewrote a round and the table's bytes in
+three parts that sum to its state's; each metric is None without its
+record; device idle time is put down to the innermost program span."""
 import importlib.util
 import types
 from pathlib import Path
@@ -15,11 +16,13 @@ spec = importlib.util.spec_from_file_location("trace_cell", TOOL)
 tc = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(tc)
 
-from wfbench.tests.tiny import make_root  # noqa: E402  (path set by tc)
+from repro_torch.core import table as T  # noqa: E402  (path set by tc)
+from wfbench.tests.tiny import make_root  # noqa: E402
 
 HOST = {"host_syncs_per_round", "sync_wait_ms_per_round",
         "dispatch_self_ms_per_round", "facade_self_ms_per_round",
-        "slowpath_lane_share"}
+        "slowpath_lane_share", "dir_writes_per_round", "table_dir_bytes",
+        "table_pool_bytes", "table_bucket_bytes"}
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +57,18 @@ def test_tiny_cells_traced_with_telemetry(root, cell):
     calls = tel["summary"]["repro.facade.update" if kv else
                            "repro.facade.apply"]["calls"]
     assert calls == tel["rounds"]
+    # the splits' directory writes, and the state's bytes in three parts
+    m = tel["metrics"]
+    assert m["dir_writes_per_round"] == c.get("slow.dir_writes", 0) / tel[
+        "rounds"] >= 0
+    spec = tc.harness.load_cell(root, cell)["config"]["spec"]
+    cfg = T.TableConfig(**{k: v for k, v in spec.items()
+                           if k != "slab_capacity"})
+    state = T.init_table(cfg, "cpu")
+    assert m["table_dir_bytes"] == 4 << cfg.dmax
+    assert m["table_pool_bytes"] == 2 * state.keys.nbytes
+    assert sum(m[f"table_{p}_bytes"] for p in tc.TABLE_BYTES) == sum(
+        t.nbytes for t in state)
 
 
 def test_metrics_none_without_record():
@@ -63,6 +78,7 @@ def test_metrics_none_without_record():
     assert tc.payload_host_ms_per_round(empty, 10) is None
     assert tc.slowpath_lane_share(empty) is None
     assert tc.hand_count(None, 64) is None
+    assert tc.dir_writes_per_round(empty, 10) == 0
 
 
 def test_idle_by_innermost_span():
@@ -74,6 +90,17 @@ def test_idle_by_innermost_span():
     gaps = [(5, 25), (65, 110), (125, 140)]
     assert tc.idle_by_span(gaps, spans) == {"a": 5 + 30, "b": 10 + 5,
                                             "c": 5, "d": 5}
+
+
+def test_kernel_us_by_program_kernel():
+    pairs = [("void (anonymous namespace)::fused_probe_kernel<64, 1>(int)",
+              2.0), ("void (anonymous namespace)::probe_kernel<64>()", 3.0),
+             ("void (anonymous namespace)::resize_apply_kernel<"
+              "repro_torch::RegisterRow<8> >(Args)", 5.0),
+             ("void (anonymous namespace)::probe_kernel<64>()", 1.0),
+             ("void at::native::vectorized_elementwise_kernel<4>()", 7.0)]
+    assert tc.kernel_us(pairs) == {"fused_probe": 2.0, "probe": 4.0,
+                                   "resize_apply": 5.0}
 
 
 def test_cost_form(root):

@@ -12,7 +12,9 @@ stretch inside ``repro_torch.telemetry.collect()``, and prints a
 metrics below, the summary per span name and the counters of the
 host-timed stretch, the sync counts a hand count of the code expects, and
 the device-idle microseconds of the profiled stretch by the innermost
-program span the host was in (``idle_by_span``).
+program span the host was in (``idle_by_span``), and the device
+microseconds a profiled round of each of the program's kernels
+(``kernel_us_per_round``).
 
 The second form measures what tracing costs: after the cell's set-up it
 runs ``--cost`` pairs of windows of ``--cost-seconds``, one with
@@ -31,6 +33,12 @@ host-timed stretch unless said):
 - ``payload_host_ms_per_round``: total ms of ``repro.payload.*`` (their
   nested lookups included), on schema tables only;
 - ``slowpath_lane_share``: ``slow.lanes`` over ``txn.live_lanes``, in %;
+- ``dir_writes_per_round``: ``slow.dir_writes``, the directory entries the
+  splits rewrote;
+- ``table_dir_bytes``, ``table_pool_bytes``, ``table_bucket_bytes``: the
+  table's state after set-up, in bytes: the static directory (4 * 2**dmax),
+  the key and value rows, and the rest (per-bucket arrays, free stack,
+  scalars and lanes); the three sum to the state's bytes;
 - ``idle_in_program_share``: in the profiled stretch, the device-idle
   time during which the host was inside a program span, over all
   device-idle time, in % (on a card only).
@@ -41,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -106,9 +115,27 @@ def slowpath_lane_share(rec, rounds=None):
     return 100.0 * c.get("slow.lanes", 0) / c["txn.live_lanes"]
 
 
+def dir_writes_per_round(rec, rounds):
+    if rec is None or not rounds:
+        return None
+    return rec.counters.get("slow.dir_writes", 0) / rounds
+
+
 HOST_METRICS = (host_syncs_per_round, sync_wait_ms_per_round,
                 dispatch_self_ms_per_round, facade_self_ms_per_round,
-                payload_host_ms_per_round, slowpath_lane_share)
+                payload_host_ms_per_round, slowpath_lane_share,
+                dir_writes_per_round)
+TABLE_BYTES = ("dir", "pool", "bucket")
+
+
+def table_bytes(state):
+    """``{table_<part>_bytes: n}`` of a ``TableState``: the directory, the
+    key and value rows, and the rest."""
+    d = state.directory.nbytes
+    pool = state.keys.nbytes + state.vals.nbytes
+    rest = sum(t.nbytes for t in state) - d - pool
+    return dict(zip((f"table_{p}_bytes" for p in TABLE_BYTES),
+                    (d, pool, rest)))
 
 
 def hand_count(rec, n_lanes):
@@ -120,7 +147,8 @@ def hand_count(rec, n_lanes):
     lanes, one ``pending`` read a round and one more where the call ends
     before its bound (22 rounds in every cell, far above what a call
     runs); a round of it one ``waves`` read, one ``wave_pass`` write, two
-    ``split_pass`` and ten ``splits`` writes; and the plain kernels' wave
+    ``split_pass`` writes, eight ``splits`` writes and one ``splits`` read
+    (the size of the directory ranges to rewrite); and the plain kernels' wave
     loops add one ``waves`` read a transaction (not counted here)."""
     if rec is None:
         return None
@@ -136,7 +164,7 @@ def hand_count(rec, n_lanes):
             else 0,
             "sync.pending": rounds + calls, "sync.waves": rounds,
             "sync.wave_pass": rounds, "sync.split_pass": 2 * rounds,
-            "sync.splits": 10 * rounds}
+            "sync.splits": 9 * rounds}
     return {k: v for k, v in want.items() if v}
 
 
@@ -224,15 +252,47 @@ def profile_idle(prof, names):
 
 
 # ---------------------------------------------------------------------------
+# device time by program kernel
+
+KERNELS = ("fused_probe", "probe", "fused_apply", "grouped_apply",
+           "resize_apply")
+_KERNEL = re.compile(r"(\w+)_kernel\b")
+
+
+def kernel_us(pairs):
+    """``{kernel: µs}`` of the program's kernels (``csrc/<name>.cu``'s
+    ``<name>_kernel``) from ``(device event name, µs)`` pairs; other
+    device work is left out."""
+    out = {}
+    for name, us in pairs:
+        m = _KERNEL.search(name)
+        if m and m.group(1) in KERNELS:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + us
+    return out
+
+
+def profile_kernel_us(prof):
+    return kernel_us((e.name, e.time_range.elapsed_us())
+                     for e in prof.events() if tr._is_device(e))
+
+
+# ---------------------------------------------------------------------------
 # the two forms
 
 
 class _TracedRun(harness.Run):
-    """``harness.Run`` with each window inside ``telemetry.collect()``."""
+    """``harness.Run`` with each window inside ``telemetry.collect()``,
+    and the table's bytes read after set-up (the harness frees the table
+    before its check)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.windows = []     # (record, wall s, rounds) per window
+        self.table_bytes = {}
+
+    def setup(self):
+        super().setup()
+        self.table_bytes = table_bytes(self.table.state)
 
     def window(self, seconds):
         with telemetry.collect() as rec:
@@ -275,11 +335,15 @@ def traced(workload, seed, seconds, device=None, root=ROOT):
     share, by, idle = (profile_idle(profs[0], set(rec_a.summary))
                        if profs else (None, {}, 0.0))
     metrics["idle_in_program_share"] = share
+    metrics.update(runs[0].table_bytes)
     line["metrics"] = {k: v for k, v in metrics.items() if v is not None}
     if profs:
+        n_a = runs[0].windows[0][2]
         line["profiled"] = {
             "idle_us": idle, "counters": rec_a.counters,
-            "idle_by_span": dict(sorted(by.items(), key=lambda kv: -kv[1]))}
+            "idle_by_span": dict(sorted(by.items(), key=lambda kv: -kv[1])),
+            "kernel_us_per_round": {
+                k: v / n_a for k, v in profile_kernel_us(profs[0]).items()}}
     return result, lines, checks, {"telemetry": line}
 
 
